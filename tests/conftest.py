@@ -37,6 +37,10 @@ def pytest_configure(config):
         "markers",
         "slow: heavy model-zoo smoke / sweep tests; deselect with "
         "-m \"not slow\" for a fast inner loop (tier-1 runs all)")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU and nvcc (the port's CUDA kernels); "
+        "skips without one")
 
 
 @pytest.fixture(autouse=True, scope="module")
