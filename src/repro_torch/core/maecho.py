@@ -21,9 +21,10 @@ Backends (:func:`maecho_aggregate`'s ``backend``):
   - ``"oracle"``: the plain PyTorch reference path — materializes the
     (N, out, in) residual per leaf per iteration.
   - ``"kernel"``: leaves with min(out, in) ≥ 128 run the fused
-    streaming pipeline (``kernels.ops``): on a CUDA tensor with dense
-    projectors, the hand-written kernels B1 (Gram), B4 (Eq. 7) and B7
-    (Eq. 11).  Smaller leaves and 1-D biases run the oracle.
+    streaming pipeline (``kernels.ops``): on a CUDA tensor the
+    hand-written kernels B1 (Gram), B4 (Eq. 7) and B7 (Eq. 11) for
+    dense projectors, B2, B5 and B8 for factored ones.  Smaller leaves
+    and 1-D biases run the oracle.
   - ``"auto"``: the same routing without fallback warnings.
 
 Routing is compiled once by ``core.plan.compile_plan``; the τ-loop

@@ -12,7 +12,8 @@ Routes in this port:
 
   ``oracle``   the plain PyTorch reference path.
   ``kernel``   the fused streaming pipeline (2-D leaf, min dim ≥ 128):
-               CUDA kernels B1/B4/B7 for dense projectors.
+               CUDA kernels B1/B4/B7 for dense projectors, B2/B5/B8 for
+               factored ones.
 
 The ``sharded`` / ``sharded2d`` backends (ROADMAP A11) and stacked
 leaves (A7) raise ``NotImplementedError``.

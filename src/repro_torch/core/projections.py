@@ -49,3 +49,54 @@ def null_projector_from_features_continue(Q, X, alpha: float = 1e-3,
 
 def symmetrize(P):
     return 0.5 * (P + P.T)
+
+
+# --------------------------------------------------------------------------
+# SVD compression (paper §7.3 "The SVD decomposition for P")
+# --------------------------------------------------------------------------
+def svd_compress(P, k: int):
+    """Keep the top-k eigencomponents of the (symmetric PSD) projector.
+
+    Returns (U_k, s_k) with P ≈ U_k diag(s_k) U_kᵀ, eigenvalues in
+    descending order.  Communication cost drops from d² to k·(d+1) —
+    the paper's Table 6 experiment.
+    """
+    s, U = torch.linalg.eigh(symmetrize(P))
+    # the reference's jnp.argsort(s)[::-1]: a stable ascending sort, reversed
+    idx = torch.argsort(s, stable=True).flip(0)[:k]
+    return U[:, idx], s[idx]
+
+
+def svd_restore(U_k, s_k):
+    return (U_k * s_k) @ U_k.T
+
+
+def compression_ratio(d: int, k: int) -> float:
+    return (k * (d + 1)) / float(d * d)
+
+
+def factor_projection(P, k: int) -> dict:
+    """Factored form {"U", "s"} with P ≈ U·diag(s)·Uᵀ — accepted
+    directly by ``core.maecho`` (and run by the kernels B2/B5/B8)."""
+    U, s = svd_compress(P, k)
+    return {"U": U, "s": s}
+
+
+def factor_projection_tree(projs, k: int, min_dim: int = 4):
+    """Factor every full (d, d) projector leaf with d ≥ ``min_dim`` in a
+    projection pytree at rank min(k, d); ``{"U", "s"}`` nodes and other
+    leaves are kept as they are."""
+
+    def walk(node):
+        if isinstance(node, dict):
+            if set(node) == {"U", "s"}:
+                return node
+            return {kk: walk(v) for kk, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v) for v in node)
+        if (isinstance(node, torch.Tensor) and node.dim() == 2
+                and node.shape[0] == node.shape[1] and node.shape[0] >= min_dim):
+            return factor_projection(node, min(k, node.shape[0]))
+        return node
+
+    return walk(projs)

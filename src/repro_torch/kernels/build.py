@@ -2,9 +2,10 @@
 
 Each source is compiled on first use by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, loaded with ``ctypes``.  The
-library is named by a content hash of its source and the compiler
-flags, so an edited kernel never loads a stale build; a file lock keeps
-concurrent processes from racing on one build.  Output goes to
+library is named by a content hash of its source, the shared headers
+(``csrc/*.cuh``) and the compiler flags, so an edited kernel never
+loads a stale build; a file lock keeps concurrent processes from
+racing on one build.  Output goes to
 ``build/repro_torch/`` at the repository root (git-ignored).
 
 Every C entry point takes tensor pointers as ``void*``, integer shapes
@@ -28,7 +29,8 @@ CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("maecho_gram", "maecho_update", "maecho_v_update")
+SOURCES = ("maecho_gram", "maecho_update", "maecho_v_update",
+           "maecho_gram_left", "maecho_update_left", "maecho_v_update_factored")
 
 _libs: dict[str, ctypes.CDLL] = {}
 
@@ -47,8 +49,10 @@ def _nvcc() -> str:
 
 def _paths(name: str) -> tuple[pathlib.Path, pathlib.Path]:
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC.glob("*.cuh")):    # every source may include them
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:16]
     return src, BUILD_DIR / f"{name}-{digest}.so"
 
 

@@ -1,0 +1,36 @@
+// B2 — MA-Echo Eq. 6 Gram from left factors, for Hopper (sm_90a).
+//
+// Replaces the TPU kernel src/repro/kernels/maecho_gram.py:180
+// (`maecho_gram_left`, pl.pallas_call at :194):
+//     G[i, j] = <R_i, R_j>,   R_i = A_i UT_i
+// with A (N, out, k) the compressed residual ((W - V_i) U_i) diag(s_i)
+// and UT (N, k, in) = U_i^T of a factored projector
+// P_i = U_i diag(s_i) U_i^T; fp32 in, fp32 accumulation (no TF32).
+// B1's design (maecho_tile.cuh) with the K-loop over the rank k: each
+// CTA owns one 32x32 (out, in) tile, parks all N residual tiles in
+// shared memory (N <= 54), writes a partial (N, N); a second launch sums
+// the partials in tile order.  The rank is masked like out and in, so
+// a rank of 78 or 196 needs no padding.
+//
+// Bound.  2*N*out*in*k flops for the residual tiles plus 2*N^2*out*in for
+// the pair contraction, against 4*(N*out*k + N*k*in) bytes: at W0
+// (400x784, N=4, k=78) ~0.21 GFLOP on ~1.5 MB, bound by fp32 operations.
+
+#include "maecho_tile.cuh"
+
+extern "C" {
+
+long long maecho_gram_left_workspace_floats(int N, int out_d, int in_d) {
+  return gram_workspace_floats(N, out_d, in_d);
+}
+
+int maecho_gram_left_max_clients() { return kMaxClients; }
+
+int maecho_gram_left_launch(const void* A, const void* UT, void* workspace,
+                            void* G, int N, int out_d, int in_d, int rank,
+                            void* stream) {
+  return gram_launch(left_op(A, UT, out_d, in_d, rank), workspace, G, N,
+                     out_d, in_d, stream);
+}
+
+}  // extern "C"

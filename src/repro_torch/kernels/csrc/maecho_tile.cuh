@@ -1,0 +1,344 @@
+// Shared tile machinery of the MA-Echo kernels for Hopper (sm_90a):
+// B1/B2 (Eq. 6 Gram), B4/B5 (Eq. 7 update) and B7/B8 (Eq. 11 update).
+//
+// Each of them forms, for one client i and one 32x32 (out, in) tile, a
+// residual tile
+//     R_i[o, c] = sum_{k < depth} L_i[o, k] * Rt_i[k, c]
+// with plain fp32 FMA (no TF32).  A dense kernel takes L_i = W - V_i
+// and Rt_i = P_i (depth = in); its factored twin takes the compressed
+// residual L_i = A_i (N, out, rank) and Rt_i = U_i^T (N, rank, in), so
+// the K-loop runs over the projector's rank.  The twins differ only in
+// how they load L and Rt, so every kernel body here is a template over
+// an operand struct with
+//     int depth;
+//     __device__ float left(int i, int o, int k) const;   // o < out, k < depth
+//     __device__ float right(int i, int k, int c) const;  // k < depth, c < in
+// Ragged edges on out, in and depth are masked on load (zero outside the
+// leaf, which is exact) and on store, so no operand is ever padded.
+//
+// The TPU grids ran in order and carried sums across grid steps; Hopper
+// runs blocks in no order.  So:
+//   - Gram: each CTA parks all N residual tiles in shared memory (N*4 KiB,
+//     N <= kMaxClients = 54 within the 227 KiB a block may use), writes
+//     its partial (N, N) to a workspace, and a second launch sums the
+//     partials in tile order: no atomics, so G (and the QP's alpha) is
+//     bitwise reproducible.
+//   - Eq. 7: the client sum is a loop inside the CTA; alpha is read from
+//     device memory (no host sync).
+//   - Eq. 11: one CTA per (client, tile).  The optional row norm needed
+//     whole rows resident on the TPU; here the first launch stores the
+//     unnormalised update and per-tile row sums of squares, and a second
+//     launch sums each row in tile order and rescales.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int T = 32;          // tile edge: out rows, in columns, depth
+constexpr int NT = 256;        // threads per CTA; each owns a 2x2 micro-tile
+constexpr int kMaxClients = 54;
+
+inline int tiles(int d) { return (d + T - 1) / T; }
+
+struct Stage {                 // one K-step's operand tiles
+  float a[T][T + 1];
+  float b[T][T];
+};
+
+// r = this thread's 2x2 micro-tile of R_i for the tile at (o0, c0).
+template <class Op>
+__device__ __forceinline__ void residual_tile(const Op& op, int i, int o0, int c0,
+                                              int out_d, int in_d, Stage& st,
+                                              float r[2][2]) {
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  r[0][0] = r[0][1] = r[1][0] = r[1][1] = 0.f;
+  for (int k0 = 0; k0 < op.depth; k0 += T) {
+    for (int e = tid; e < T * T; e += NT) {
+      const int rr = e / T, c = e % T;
+      const int o = o0 + rr, k = k0 + c;
+      st.a[rr][c] = (o < out_d && k < op.depth) ? op.left(i, o, k) : 0.f;
+      const int kr = k0 + rr, cc = c0 + c;
+      st.b[rr][c] = (kr < op.depth && cc < in_d) ? op.right(i, kr, cc) : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < T; ++kk) {
+      const float a0 = st.a[ty][kk], a1 = st.a[ty + 16][kk];
+      const float b0 = st.b[kk][tx], b1 = st.b[kk][tx + 16];
+      r[0][0] = fmaf(a0, b0, r[0][0]);
+      r[0][1] = fmaf(a0, b1, r[0][1]);
+      r[1][0] = fmaf(a1, b0, r[1][0]);
+      r[1][1] = fmaf(a1, b1, r[1][1]);
+    }
+    __syncthreads();
+  }
+}
+
+// ---------------------------------------------------------------- Gram
+
+constexpr size_t gram_smem_bytes(int n) {
+  return sizeof(float) * (size_t)n * T * T + sizeof(Stage);
+}
+
+template <class Op>
+__global__ void __launch_bounds__(NT)
+gram_partial_kernel(Op op, float* __restrict__ partial, int N, int out_d, int in_d) {
+  extern __shared__ float smem[];
+  float* rstore = smem;                                  // N x T x T
+  Stage& st = *reinterpret_cast<Stage*>(smem + (size_t)N * T * T);
+  const int o0 = blockIdx.y * T, c0 = blockIdx.x * T;
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+
+  for (int i = 0; i < N; ++i) {
+    float r[2][2];
+    residual_tile(op, i, o0, c0, out_d, in_d, st, r);
+    float* Ri = rstore + (size_t)i * T * T;
+    Ri[ty * T + tx] = r[0][0];
+    Ri[ty * T + tx + 16] = r[0][1];
+    Ri[(ty + 16) * T + tx] = r[1][0];
+    Ri[(ty + 16) * T + tx + 16] = r[1][1];
+  }
+  __syncthreads();
+
+  // pair contraction: one warp per (i <= j) pair, lanes stride the tile,
+  // a fixed butterfly reduction keeps the sum order deterministic
+  const int warp = tid / 32, lane = tid % 32;
+  float* out = partial + (size_t)(blockIdx.y * gridDim.x + blockIdx.x) * N * N;
+  for (int p = warp; p < N * N; p += NT / 32) {
+    const int i = p / N, j = p % N;
+    if (j < i) continue;                      // warp-uniform
+    const float* Ri = rstore + (size_t)i * T * T;
+    const float* Rj = rstore + (size_t)j * T * T;
+    float s = 0.f;
+    for (int e = lane; e < T * T; e += 32) s = fmaf(Ri[e], Rj[e], s);
+    for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+    if (lane == 0) {
+      out[i * N + j] = s;
+      out[j * N + i] = s;
+    }
+  }
+}
+
+// G[e] = sum over tiles of partial[t][e], tiles in index order.
+__global__ void gram_reduce_kernel(const float* __restrict__ partial,
+                                   float* __restrict__ G, int n_tiles, int NN) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= NN) return;
+  float s = 0.f;
+  for (int t = 0; t < n_tiles; ++t) s += partial[(size_t)t * NN + e];
+  G[e] = s;
+}
+
+// Floats of workspace a Gram launch needs: one partial (N, N) per tile.
+inline long long gram_workspace_floats(int N, int out_d, int in_d) {
+  return (long long)tiles(out_d) * tiles(in_d) * N * N;
+}
+
+template <class Op>
+int gram_launch(const Op& op, void* workspace, void* G, int N, int out_d,
+                int in_d, void* stream) {
+  if (N < 1 || N > kMaxClients || out_d < 1 || in_d < 1 || op.depth < 1)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = gram_smem_bytes(N);
+  cudaError_t err = cudaFuncSetAttribute(
+      gram_partial_kernel<Op>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid(tiles(in_d), tiles(out_d));
+  gram_partial_kernel<Op><<<grid, NT, smem, s>>>(
+      op, static_cast<float*>(workspace), N, out_d, in_d);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int NN = N * N;
+  gram_reduce_kernel<<<(NN + 255) / 256, 256, 0, s>>>(
+      static_cast<const float*>(workspace), static_cast<float*>(G),
+      (int)(grid.x * grid.y), NN);
+  return (int)cudaGetLastError();
+}
+
+// --------------------------------------------------------------- Eq. 7
+
+// out = W + eta * sum_i (-2 alpha_i) R_i, one CTA per output tile.
+template <class Op>
+__global__ void __launch_bounds__(NT)
+update_kernel(Op op, const float* __restrict__ W, const float* __restrict__ alpha,
+              float* __restrict__ out, int N, int out_d, int in_d, float eta) {
+  __shared__ Stage st;
+  const int o0 = blockIdx.y * T, c0 = blockIdx.x * T;
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+
+  float acc[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+  for (int i = 0; i < N; ++i) {
+    float r[2][2];
+    residual_tile(op, i, o0, c0, out_d, in_d, st, r);
+    const float m = -2.0f * alpha[i];
+#pragma unroll
+    for (int a = 0; a < 2; ++a)
+#pragma unroll
+      for (int b = 0; b < 2; ++b) acc[a][b] += m * r[a][b];
+  }
+
+#pragma unroll
+  for (int a = 0; a < 2; ++a) {
+#pragma unroll
+    for (int b = 0; b < 2; ++b) {
+      const int o = o0 + ty + 16 * a, c = c0 + tx + 16 * b;
+      if (o < out_d && c < in_d) {
+        const size_t idx = (size_t)o * in_d + c;
+        out[idx] = W[idx] + eta * acc[a][b];
+      }
+    }
+  }
+}
+
+template <class Op>
+int update_launch(const Op& op, const void* W, const void* alpha, void* out,
+                  int N, int out_d, int in_d, float eta, void* stream) {
+  if (N < 1 || out_d < 1 || in_d < 1 || op.depth < 1) return (int)cudaErrorInvalidValue;
+  const dim3 grid(tiles(in_d), tiles(out_d));
+  update_kernel<Op><<<grid, NT, 0, static_cast<cudaStream_t>(stream)>>>(
+      op, static_cast<const float*>(W), static_cast<const float*>(alpha),
+      static_cast<float*>(out), N, out_d, in_d, eta);
+  return (int)cudaGetLastError();
+}
+
+// -------------------------------------------------------------- Eq. 11
+
+// u = (W' - V_i) - frac * R_i for one (client, tile); without norm the
+// launch stores V_i + u, with norm it stores u and the tile's per-row
+// sums of squares (summed in column order) to rowss (N, out, n_col_tiles).
+template <bool NORM, class Op>
+__global__ void __launch_bounds__(NT)
+v_update_kernel(Op op, const float* __restrict__ W, const float* __restrict__ V,
+                float* __restrict__ out, float* __restrict__ rowss, int out_d,
+                int in_d, float frac) {
+  __shared__ Stage st;
+  __shared__ float Sq[T][T + 1];
+  const int i = blockIdx.z;
+  const int o0 = blockIdx.y * T, c0 = blockIdx.x * T;
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const size_t OI = (size_t)out_d * in_d;
+  const float* Vi = V + i * OI;
+  float* Oi = out + i * OI;
+
+  float r[2][2];
+  residual_tile(op, i, o0, c0, out_d, in_d, st, r);
+
+#pragma unroll
+  for (int a = 0; a < 2; ++a) {
+#pragma unroll
+    for (int b = 0; b < 2; ++b) {
+      const int lr = ty + 16 * a, lc = tx + 16 * b;
+      const int o = o0 + lr, c = c0 + lc;
+      float u = 0.f;
+      if (o < out_d && c < in_d) {
+        const size_t idx = (size_t)o * in_d + c;
+        const float v = Vi[idx];
+        u = (W[idx] - v) - frac * r[a][b];
+        Oi[idx] = NORM ? u : v + u;
+      }
+      if (NORM) Sq[lr][lc] = u * u;
+    }
+  }
+  if (NORM) {
+    __syncthreads();
+    if (tid < T && o0 + tid < out_d) {
+      float s = 0.f;
+      for (int c = 0; c < T; ++c) s += Sq[tid][c];
+      rowss[((size_t)i * out_d + o0 + tid) * gridDim.x + blockIdx.x] = s;
+    }
+  }
+}
+
+// One CTA per (client, row): sum the row's tile partials in tile order,
+// then V_i' = V_i + u / max(||u||, eps) over the row.
+__global__ void v_norm_kernel(const float* __restrict__ V, float* __restrict__ out,
+                              const float* __restrict__ rowss, int in_d,
+                              int n_ct, float eps) {
+  const size_t row = blockIdx.x;
+  float ss = 0.f;
+  for (int t = 0; t < n_ct; ++t) ss += rowss[row * n_ct + t];
+  const float den = fmaxf(sqrtf(ss), eps);
+  for (int c = threadIdx.x; c < in_d; c += blockDim.x) {
+    const size_t idx = row * in_d + c;
+    out[idx] = V[idx] + out[idx] / den;
+  }
+}
+
+// Floats of workspace an Eq. 11 launch needs: per-row, per-column-tile
+// sums of squares when norm is on, none otherwise.
+inline long long v_update_workspace_floats(int N, int out_d, int in_d, int norm) {
+  return norm ? (long long)N * out_d * tiles(in_d) : 0;
+}
+
+template <class Op>
+int v_update_launch(const Op& op, const void* W, const void* V, void* out,
+                    void* workspace, int N, int out_d, int in_d, float frac,
+                    int norm, float eps, void* stream) {
+  if (N < 1 || N > 65535 || out_d < 1 || in_d < 1 || op.depth < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid(tiles(in_d), tiles(out_d), N);
+  const float* w = static_cast<const float*>(W);
+  const float* v = static_cast<const float*>(V);
+  float* o = static_cast<float*>(out);
+  float* ws = static_cast<float*>(workspace);
+  if (!norm) {
+    v_update_kernel<false, Op><<<grid, NT, 0, s>>>(op, w, v, o, ws, out_d, in_d, frac);
+    return (int)cudaGetLastError();
+  }
+  v_update_kernel<true, Op><<<grid, NT, 0, s>>>(op, w, v, o, ws, out_d, in_d, frac);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  v_norm_kernel<<<N * out_d, 256, 0, s>>>(v, o, ws, in_d, (int)grid.x, eps);
+  return (int)cudaGetLastError();
+}
+
+// -------------------------------------------------------------- operands
+
+// Dense projector: L_i = W - V_i (out, in), Rt_i = P_i (in, in).
+struct DenseOp {
+  const float* W;
+  const float* V;
+  const float* P;
+  int in_d;
+  size_t OI;
+  int depth;                   // = in_d
+  __device__ __forceinline__ float left(int i, int o, int k) const {
+    const size_t idx = (size_t)o * in_d + k;
+    return W[idx] - V[i * OI + idx];
+  }
+  __device__ __forceinline__ float right(int i, int k, int c) const {
+    return P[(size_t)i * in_d * in_d + (size_t)k * in_d + c];
+  }
+};
+
+inline DenseOp dense_op(const void* W, const void* V, const void* P, int out_d,
+                        int in_d) {
+  return DenseOp{static_cast<const float*>(W), static_cast<const float*>(V),
+                 static_cast<const float*>(P), in_d, (size_t)out_d * in_d, in_d};
+}
+
+// Factored projector P_i = U_i diag(s_i) U_i^T: L_i = A_i (out, rank), the
+// compressed residual, and Rt_i = U_i^T (rank, in).
+struct LeftOp {
+  const float* A;
+  const float* UT;
+  int out_d, in_d;
+  int depth;                   // the rank
+  __device__ __forceinline__ float left(int i, int o, int k) const {
+    return A[((size_t)i * out_d + o) * depth + k];
+  }
+  __device__ __forceinline__ float right(int i, int k, int c) const {
+    return UT[((size_t)i * depth + k) * in_d + c];
+  }
+};
+
+inline LeftOp left_op(const void* A, const void* UT, int out_d, int in_d, int rank) {
+  return LeftOp{static_cast<const float*>(A), static_cast<const float*>(UT),
+                out_d, in_d, rank};
+}
+
+}  // namespace

@@ -1,9 +1,12 @@
-"""B1: Eq. 6 Gram of projected residuals, G[i, j] = ⟨Rᵢ, Rⱼ⟩ with
-Rᵢ = (W − Vᵢ)Pᵢ and dense Pᵢ — the wrapper of ``csrc/maecho_gram.cu``
-(port of ``repro/kernels/maecho_gram.py::maecho_gram``).
+"""Eq. 6 Gram of projected residuals, G[i, j] = ⟨Rᵢ, Rⱼ⟩: B1 for dense
+Pᵢ (Rᵢ = (W − Vᵢ)Pᵢ, ``csrc/maecho_gram.cu``, port of
+``repro/kernels/maecho_gram.py::maecho_gram``) and B2 for factored
+Pᵢ = Uᵢ·diag(sᵢ)·Uᵢᵀ (Rᵢ = Aᵢ @ UTᵢ, ``csrc/maecho_gram_left.cu``, port
+of ``maecho_gram_left``), plus the compressed residual A both factored
+passes start from.
 
-On a CUDA tensor the wrapper launches the kernel (or raises); on a CPU
-tensor it runs the plain version, ``ref.maecho_gram_ref``.
+On a CUDA tensor a wrapper launches its kernel (or raises); on a CPU
+tensor it runs the plain version in ``ref``.
 """
 from __future__ import annotations
 
@@ -48,3 +51,49 @@ def maecho_gram(W, V, P):
 
 
 maecho_gram.launches = 0
+
+
+# The one GEMM of the factored path that is not a kernel: the reference
+# leaves it to XLA as an einsum outside any Pallas kernel, so the port
+# leaves it to torch.matmul (fp32; callers keep TF32 off).
+compressed_residual = ref.compressed_residual_ref
+
+_LEFT_SIGS = {
+    "maecho_gram_left_workspace_floats": (ctypes.c_longlong, [ctypes.c_int] * 3),
+    "maecho_gram_left_max_clients": (ctypes.c_int, []),
+    "maecho_gram_left_launch": (ctypes.c_int, [ctypes.c_void_p] * 4
+                                + [ctypes.c_int] * 4 + [ctypes.c_void_p]),
+}
+
+
+def maecho_gram_left(A, UT):
+    """B2, the wrapper of ``csrc/maecho_gram_left.cu`` (port of
+    ``repro/kernels/maecho_gram.py::maecho_gram_left``): the (N, N)
+    Gram of Rᵢ = Aᵢ @ UTᵢ from A (N, out, k) and UT (N, k, in) float32.
+    Any out/in/k (ragged edges are masked in the kernel); N up to the
+    kernel's shared-memory cap (54)."""
+    if A.device.type == "cpu":
+        return ref.maecho_gram_left_ref(A, UT)
+    build.check_f32_cuda("maecho_gram_left", A=A, UT=UT)
+    build.require(A.dim() == 3, f"maecho_gram_left: A must be (N, out, k), got {tuple(A.shape)}")
+    N, out_d, kd = A.shape
+    build.require(UT.dim() == 3 and tuple(UT.shape[:2]) == (N, kd) and kd >= 1,
+                  f"maecho_gram_left: shapes A {tuple(A.shape)}, UT {tuple(UT.shape)} "
+                  f"do not match (N, out, k), (N, k, in)")
+    in_d = UT.shape[2]
+    lib = build.load("maecho_gram_left", _LEFT_SIGS)
+    build.require(1 <= N <= lib.maecho_gram_left_max_clients(),
+                  f"maecho_gram_left: N={N} clients outside "
+                  f"1..{lib.maecho_gram_left_max_clients()}")
+    ws = torch.empty(lib.maecho_gram_left_workspace_floats(N, out_d, in_d),
+                     dtype=torch.float32, device=A.device)
+    G = torch.empty((N, N), dtype=torch.float32, device=A.device)
+    err = lib.maecho_gram_left_launch(build.ptr(A), build.ptr(UT), build.ptr(ws),
+                                      build.ptr(G), N, out_d, in_d, kd,
+                                      build.stream())
+    build.check(err, "maecho_gram_left")
+    maecho_gram_left.launches += 1
+    return G
+
+
+maecho_gram_left.launches = 0

@@ -1,10 +1,11 @@
-"""B7: Eq. 11 anchor update Vᵢ' = Vᵢ + Norm(Δᵢ − frac·ΔᵢPᵢ),
-Δᵢ = W' − Vᵢ, with dense Pᵢ — the wrapper of
-``csrc/maecho_v_update.cu`` (port of
-``repro/kernels/maecho_v_update.py::maecho_v_update``).
+"""Eq. 11 anchor update Vᵢ' = Vᵢ + Norm(Δᵢ − frac·ΔᵢPᵢ), Δᵢ = W' − Vᵢ:
+B7 for dense Pᵢ (``csrc/maecho_v_update.cu``, port of
+``repro/kernels/maecho_v_update.py::maecho_v_update``) and B8 for
+factored Pᵢ (``csrc/maecho_v_update_factored.cu``, port of
+``maecho_v_update_factored``).
 
-On a CUDA tensor the wrapper launches the kernel (or raises); on a CPU
-tensor it runs the plain version, ``ref.maecho_v_update_ref``.
+On a CUDA tensor a wrapper launches its kernel (or raises); on a CPU
+tensor it runs the plain version in ``ref``.
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build, ref
+from repro_torch.kernels.maecho_gram import compressed_residual
 
 _SIGS = {
     "maecho_v_update_workspace_floats": (ctypes.c_longlong, [ctypes.c_int] * 4),
@@ -51,3 +53,78 @@ def maecho_v_update(W, V, P, frac: float, norm: bool = False,
 
 
 maecho_v_update.launches = 0
+
+_FACTORED_SIGS = {
+    "maecho_v_update_factored_workspace_floats": (ctypes.c_longlong,
+                                                  [ctypes.c_int] * 4),
+    "maecho_v_update_factored_launch": (ctypes.c_int, [ctypes.c_void_p] * 6
+                                        + [ctypes.c_int] * 4
+                                        + [ctypes.c_float, ctypes.c_int,
+                                           ctypes.c_float, ctypes.c_void_p]),
+}
+
+
+def maecho_v_update_factored(W, V, U, s, frac: float, norm: bool = False,
+                             eps: float = 1e-12, UT=None):
+    """B8 on the reference's operands (port of
+    ``repro/kernels/maecho_v_update.py::maecho_v_update_factored``):
+    Eq. 11 for factored Pᵢ = Uᵢ·diag(sᵢ)·Uᵢᵀ, V' (N, out, in) from W
+    (out, in) updated global, V (N, out, in), U (N, in, k), s (N, k)
+    float32.  As in the reference it forms B, the compressed residual
+    of W, itself (one fp32 GEMM, not a kernel), and hands B and Uᵀ
+    (``UT`` (N, k, in) when the caller already holds it) to the kernel
+    through :func:`maecho_v_update_left`."""
+    if W.device.type == "cpu":
+        return ref.maecho_v_update_factored_ref(W, V, U, s, frac, norm, eps)
+    build.check_f32_cuda("maecho_v_update_factored", W=W, V=V, U=U, s=s)
+    build.require(V.dim() == 3, f"maecho_v_update_factored: V must be (N, out, in), "
+                                f"got {tuple(V.shape)}")
+    N, out_d, in_d = V.shape
+    kd = U.shape[-1] if U.dim() == 3 else 0
+    build.require(tuple(W.shape) == (out_d, in_d) and tuple(U.shape) == (N, in_d, kd)
+                  and tuple(s.shape) == (N, kd) and kd >= 1,
+                  f"maecho_v_update_factored: shapes W {tuple(W.shape)}, V {tuple(V.shape)}, "
+                  f"U {tuple(U.shape)}, s {tuple(s.shape)} do not match "
+                  f"(out, in), (N, out, in), (N, in, k), (N, k)")
+    if UT is None:
+        UT = U.transpose(1, 2).contiguous()
+    return maecho_v_update_left(compressed_residual(W, V, U, s), UT, W, V,
+                                frac, norm, eps)
+
+
+def maecho_v_update_left(B, UT, W, V, frac: float, norm: bool = False,
+                         eps: float = 1e-12):
+    """The B8 kernel, ``csrc/maecho_v_update_factored.cu``, on the
+    operands of the reference's ``pallas_call``: V' (N, out, in) from B
+    (N, out, k) compressed residual of W, UT (N, k, in), W (out, in)
+    updated global and V (N, out, in) float32.  Its launches count in
+    ``maecho_v_update_factored.launches``."""
+    if W.device.type == "cpu":
+        return ref.maecho_v_update_left_ref(B, UT, W, V, frac, norm, eps)
+    build.check_f32_cuda("maecho_v_update_left", B=B, UT=UT, W=W, V=V)
+    build.require(V.dim() == 3 and B.dim() == 3,
+                  f"maecho_v_update_left: V must be (N, out, in) and B (N, out, k), "
+                  f"got {tuple(V.shape)}, {tuple(B.shape)}")
+    N, out_d, in_d = V.shape
+    kd = B.shape[-1]
+    build.require(tuple(W.shape) == (out_d, in_d) and tuple(B.shape) == (N, out_d, kd)
+                  and tuple(UT.shape) == (N, kd, in_d) and kd >= 1,
+                  f"maecho_v_update_left: shapes B {tuple(B.shape)}, UT {tuple(UT.shape)}, "
+                  f"W {tuple(W.shape)}, V {tuple(V.shape)} do not match "
+                  f"(N, out, k), (N, k, in), (out, in), (N, out, in)")
+    build.require(N <= 65535, f"maecho_v_update_left: N={N} exceeds the grid's z limit")
+    lib = build.load("maecho_v_update_factored", _FACTORED_SIGS)
+    ws = torch.empty(lib.maecho_v_update_factored_workspace_floats(N, out_d, in_d,
+                                                                   int(norm)),
+                     dtype=torch.float32, device=W.device)
+    out = torch.empty_like(V)
+    err = lib.maecho_v_update_factored_launch(
+        build.ptr(B), build.ptr(UT), build.ptr(W), build.ptr(V), build.ptr(out),
+        build.ptr(ws), N, out_d, in_d, kd, float(frac), int(norm), float(eps),
+        build.stream())
+    build.check(err, "maecho_v_update_factored")
+    maecho_v_update_factored.launches += 1
+    return out
+
+
+maecho_v_update_factored.launches = 0

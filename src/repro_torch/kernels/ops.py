@@ -6,11 +6,14 @@
 the "oi" layout — ``core.maecho`` transposes "io" leaves first.
 
 Dense (``"full"``) projectors run the CUDA kernels B1/B4/B7 on a CUDA
-tensor.  The other kinds (stacked scalar, diagonal, factored) have no
-CUDA kernel yet: on a CUDA tensor they raise, on a CPU tensor they run
-the plain versions in ``ref``.  The CUDA kernels mask ragged edges
-themselves, so no operand is zero-padded (the reference's
-``_pad_to`` / ``_normalize_padded`` have no counterpart here).
+tensor, factored ones ``{"U", "s"}`` B2/B5/B8 (the Gram forms the
+compressed residual A and Uᵀ once and hands them to Eq. 7 and Eq. 11
+through the reuse context).  Stacked scalar and diagonal projectors have no CUDA
+kernel yet: on a CUDA tensor they raise, on a CPU tensor they run the
+plain versions in ``ref``; so do the kernel wrappers themselves on a
+CPU tensor.  The CUDA kernels mask ragged edges on out, in and the
+rank, so no operand is zero-padded (the reference's ``_pad_to`` /
+``_normalize_padded`` / ``_pad_factored`` have no counterpart here).
 """
 from __future__ import annotations
 
@@ -18,9 +21,11 @@ import warnings
 
 from repro_torch.core.plan import proj_kind
 from repro_torch.kernels import ref
-from repro_torch.kernels.maecho_gram import maecho_gram
-from repro_torch.kernels.maecho_update import maecho_update
-from repro_torch.kernels.maecho_v_update import maecho_v_update
+from repro_torch.kernels.maecho_gram import (compressed_residual, maecho_gram,
+                                             maecho_gram_left)
+from repro_torch.kernels.maecho_update import maecho_update, maecho_update_left
+from repro_torch.kernels.maecho_v_update import (maecho_v_update,
+                                                 maecho_v_update_factored)
 
 # below this edge a leaf runs the plain oracle (the reference's tile
 # rule; core.plan's routing keys off the same constant)
@@ -42,8 +47,8 @@ def _no_kernel_yet(kind: str, W) -> None:
     if W.is_cuda:
         raise NotImplementedError(
             f"projector kind {kind!r} has no CUDA kernel yet (kernels "
-            f"B2/B3/B5/B6/B8/B9, ROADMAP item A4); use dense projectors "
-            f"or backend='oracle'")
+            f"B3/B6/B9, ROADMAP item A4); use dense or factored "
+            f"projectors or backend='oracle'")
 
 
 def maecho_streaming_gram(W, V, P):
@@ -59,6 +64,11 @@ def maecho_streaming_gram(W, V, P):
     kind = proj_kind(P)
     if kind == "full":
         return maecho_gram(W, V, P), (kind, W, V, P)
+    if kind == "factored":
+        U, s = P["U"], P["s"]
+        A = compressed_residual(W, V, U, s)
+        UT = U.transpose(1, 2).contiguous()
+        return maecho_gram_left(A, UT), (kind, W, V, (U, s, A, UT))
     _no_kernel_yet(kind, W)
     return ref.maecho_gram_ref(W, V, P), (kind, W, V, P)
 
@@ -73,6 +83,10 @@ def maecho_streaming_apply(alpha, ctx, *, eta: float = 1.0,
     if kind == "full":
         Wn = maecho_update(W, V, P, alpha, eta)
         return Wn, maecho_v_update(Wn, V, P, frac, norm, eps)
+    if kind == "factored":
+        U, s, A, UT = P
+        Wn = maecho_update_left(W, A, UT, alpha, eta)
+        return Wn, maecho_v_update_factored(Wn, V, U, s, frac, norm, eps, UT=UT)
     if kind != "ref":
         _no_kernel_yet(kind, W)
     Wn = ref.maecho_update_ref_any(W, V, P, alpha, eta)

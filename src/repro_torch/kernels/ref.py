@@ -1,11 +1,12 @@
 """Plain PyTorch versions of the MA-Echo kernels (the targets the CUDA
 kernels are held against, and the CPU path of their wrappers).
 
-Every function accepts every projector kind the core algebra
-understands — stacked scalars (N,), diagonals (N, in), dense
+The functions of ``(W, V, P)`` accept every projector kind the core
+algebra understands — stacked scalars (N,), diagonals (N, in), dense
 (N, in, in) and factored ``{"U": (N, in, k), "s": (N, k)}`` — through
 ``core.maecho._apply_P`` (imported lazily: ``core`` imports this
-package for dispatch).
+package for dispatch).  The factored-only ones at the end take the
+projector's factors, as the kernels B2/B5/B8 do.
 """
 from __future__ import annotations
 
@@ -46,3 +47,47 @@ def maecho_v_update_ref(W, V, P, frac: float, norm: bool = False,
         nrm = torch.linalg.vector_norm(U.float(), dim=ax, keepdim=True)
         U = U / nrm.clamp_min(eps).to(U.dtype)
     return V + U
+
+
+# --------------------------------------------------------------------------
+# factored projectors Pᵢ = Uᵢ·diag(sᵢ)·Uᵢᵀ, U (N, in, k), s (N, k): the
+# residual comes as a left factor Rᵢ = Aᵢ @ UTᵢ with UT = Uᵀ (N, k, in)
+# --------------------------------------------------------------------------
+def compressed_residual_ref(W, V, U, s):
+    """Aᵢ = ((W − Vᵢ)Uᵢ)·diag(sᵢ), the (N, out, k) compressed residual,
+    formed as W@Uᵢ − Vᵢ@Uᵢ (the reference's order) so the (N, out, in)
+    residual is never materialized."""
+    U = U.float()
+    A = W.float() @ U - V.float() @ U
+    return A * s.float()[:, None, :]
+
+
+def maecho_gram_left_ref(A, UT):
+    """G[i, j] = ⟨Aᵢ@UTᵢ, Aⱼ@UTⱼ⟩ for A (N, out, k), UT (N, k, in)."""
+    R = (A.float() @ UT.float()).reshape(A.shape[0], -1)
+    return R @ R.T
+
+
+def maecho_update_left_ref(W, A, UT, alpha, eta: float = 1.0):
+    """Eq. 7 from left factors: W' = W + η·(−Σᵢ 2αᵢ Aᵢ@UTᵢ)."""
+    R = A.float() @ UT.float()
+    D = -2.0 * torch.tensordot(alpha.float(), R, dims=([0], [0]))
+    return (W.float() + eta * D).to(W.dtype)
+
+
+def maecho_v_update_left_ref(B, UT, W, V, frac: float,
+                             norm: bool = False, eps: float = 1e-12):
+    """Eq. 11 from left factors: Vᵢ' = Vᵢ + Norm((W − Vᵢ) −
+    frac·Bᵢ@UTᵢ) for B (N, out, k), UT (N, k, in)."""
+    u = (W[None] - V).float() - frac * (B.float() @ UT.float())
+    if norm:
+        u = u / torch.linalg.vector_norm(u, dim=-1, keepdim=True).clamp_min(eps)
+    return (V.float() + u).to(V.dtype)
+
+
+def maecho_v_update_factored_ref(W, V, U, s, frac: float,
+                                 norm: bool = False, eps: float = 1e-12):
+    """Eq. 11 for factored projectors: :func:`maecho_v_update_left_ref`
+    with B = ``compressed_residual_ref(W, V, U, s)`` and UT = Uᵀ."""
+    return maecho_v_update_left_ref(compressed_residual_ref(W, V, U, s),
+                                    U.transpose(1, 2), W, V, frac, norm, eps)

@@ -1,4 +1,4 @@
-"""The CUDA kernels B1/B4/B7 against their plain versions on the card
+"""The CUDA kernels B1/B4/B7 and B2/B5/B8 against their plain versions on the card
 (``PYTHONPATH=src python -m pytest --noconftest tests/test_torch_cuda.py``
 on a machine with an NVIDIA Hopper GPU and ``nvcc``; ``--noconftest``
 because ``tests/conftest.py`` imports jax, which such a machine need not
@@ -8,10 +8,14 @@ have).  Without a card every test here skips;
 import pytest
 import torch
 
+from repro_torch.core.maecho import MAEchoConfig, maecho_aggregate
 from repro_torch.kernels import ref
-from repro_torch.kernels.maecho_gram import maecho_gram
-from repro_torch.kernels.maecho_update import maecho_update
-from repro_torch.kernels.maecho_v_update import maecho_v_update
+from repro_torch.kernels.maecho_gram import (compressed_residual, maecho_gram,
+                                             maecho_gram_left)
+from repro_torch.kernels.maecho_update import maecho_update, maecho_update_left
+from repro_torch.kernels.maecho_v_update import (maecho_v_update,
+                                                 maecho_v_update_factored,
+                                                 maecho_v_update_left)
 
 pytestmark = pytest.mark.cuda
 
@@ -58,3 +62,85 @@ def test_wrappers_reject_bad_operands(card):
     with pytest.raises(ValueError, match="clients"):
         maecho_gram(W, torch.zeros(55, 8, 8, device="cuda"),
                     torch.zeros(55, 8, 8, device="cuda"))
+
+
+def _factored(gen, out_d, in_d, k, N):
+    W = torch.randn(out_d, in_d, device="cuda", generator=gen)
+    V = W + 0.1 * torch.randn(N, out_d, in_d, device="cuda", generator=gen)
+    U = torch.linalg.qr(torch.randn(N, in_d, k, device="cuda", generator=gen))[0]
+    s = torch.rand(N, k, device="cuda", generator=gen) * 0.9 + 0.1
+    a = torch.softmax(torch.randn(N, device="cuda", generator=gen), 0)
+    return W, V, U.contiguous(), s, a
+
+
+# (out, in, rank, N): the MLP's W0/W1 at table6_svd's ranks, ragged
+# out/in/rank, one client, and the shared-memory cap of 54 clients
+@pytest.mark.parametrize("shape", ((400, 784, 78, 4), (200, 400, 196, 4),
+                                   (33, 65, 7, 1), (1000, 1100, 150, 8),
+                                   (64, 96, 40, 54)))
+def test_factored_kernels_match_plain(card, shape):
+    out_d, in_d, k, N = shape
+    W, V, U, s, a = _factored(card, out_d, in_d, k, N)
+    A = compressed_residual(W, V, U, s)
+    UT = U.transpose(1, 2).contiguous()
+    G, Gr = maecho_gram_left(A, UT), ref.maecho_gram_left_ref(A, UT)
+    assert (G - Gr).abs().max() <= 1e-5 * Gr.abs().max()
+    Wn = maecho_update_left(W, A, UT, a, 0.5)
+    torch.testing.assert_close(Wn, ref.maecho_update_left_ref(W, A, UT, a, 0.5),
+                               atol=1e-4, rtol=0)
+    B = compressed_residual(Wn, V, U, s)
+    for norm in (False, True):
+        torch.testing.assert_close(
+            maecho_v_update_factored(Wn, V, U, s, 0.9, norm),
+            ref.maecho_v_update_factored_ref(Wn, V, U, s, 0.9, norm),
+            atol=1e-4, rtol=0)
+        torch.testing.assert_close(
+            maecho_v_update_left(B, UT, Wn, V, 0.9, norm),
+            ref.maecho_v_update_left_ref(B, UT, Wn, V, 0.9, norm),
+            atol=1e-4, rtol=0)
+
+
+def test_factored_wrappers_reject_bad_operands(card):
+    A = torch.zeros(2, 8, 3, device="cuda")
+    UT = torch.zeros(2, 3, 8, device="cuda")
+    with pytest.raises(ValueError, match="shapes"):
+        maecho_gram_left(A, UT[:, :2].contiguous())
+    with pytest.raises(ValueError, match="clients"):
+        maecho_gram_left(torch.zeros(55, 8, 3, device="cuda"),
+                         torch.zeros(55, 3, 8, device="cuda"))
+    with pytest.raises(ValueError, match="contiguous"):
+        maecho_update_left(torch.zeros(8, 8, device="cuda"), A,
+                           A.transpose(1, 2), torch.ones(2, device="cuda"))
+    with pytest.raises(ValueError, match="shapes"):
+        maecho_v_update_factored(torch.zeros(8, 8, device="cuda"),
+                                 torch.zeros(2, 8, 8, device="cuda"),
+                                 torch.zeros(2, 8, 3, device="cuda"),
+                                 torch.zeros(2, 4, device="cuda"), 0.5)
+    with pytest.raises(ValueError, match="shapes"):
+        maecho_v_update_left(A, UT[:, :2].contiguous(), torch.zeros(8, 8, device="cuda"),
+                             torch.zeros(2, 8, 8, device="cuda"), 0.5)
+
+
+def test_factored_aggregate_runs_other_kinds_raise(card):
+    """A factored kernel aggregate runs B2/B5/B8 on the card; scalar
+    (``projections=None``) and diagonal projectors still have no kernel
+    and raise, naming B3/B6/B9."""
+    N, out_d, in_d, k = 3, 160, 200, 30
+    clients = [{"W": torch.randn(out_d, in_d, device="cuda", generator=card)}
+               for _ in range(N)]
+    U = [torch.linalg.qr(torch.randn(in_d, k, device="cuda", generator=card))[0]
+         for _ in range(N)]
+    projs = [{"W": {"U": u.contiguous(), "s": torch.ones(k, device="cuda")}}
+             for u in U]
+    cfg = MAEchoConfig(tau=2, eta=0.5, mu=20.0)
+    before = (maecho_gram_left.launches, maecho_update_left.launches,
+              maecho_v_update_factored.launches)
+    got = maecho_aggregate(clients, projs, cfg, backend="kernel")
+    want = maecho_aggregate(clients, projs, cfg, backend="oracle")
+    assert (maecho_gram_left.launches, maecho_update_left.launches,
+            maecho_v_update_factored.launches) == tuple(b + 2 for b in before)
+    torch.testing.assert_close(got["W"], want["W"], atol=1e-3, rtol=0)
+    diag = [{"W": torch.rand(in_d, device="cuda", generator=card)} for _ in range(N)]
+    for p in (None, diag):
+        with pytest.raises(NotImplementedError, match="B3/B6/B9"):
+            maecho_aggregate(clients, p, cfg, backend="kernel")
