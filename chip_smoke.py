@@ -18,21 +18,39 @@ Phases (any failure exits nonzero; nothing is caught):
    CUDA graph of 50 calls (device time; at these small shapes a
    back-to-back loop of wrapper calls would measure the host).  B8 is
    timed as its kernel alone, on the compressed residual B and Uᵀ, and
-   as its wrapper, which forms B with a torch GEMM first.
+   as its wrapper, which forms B with a torch GEMM first.  The
+   diagonal-projector kernels B3 (Gram), B6 (Eq. 7) and B9 (Eq. 11)
+   run at both leaves (N = 4) and on the ragged shape with a
+   non-uniform diagonal in [0, 1], B9 with the row-norm off and on.
 2. The dense main path, through the user entry points: the full-width
    paper MLP on a 4-client Dirichlet(0.05) split of the synthetic
    MNIST, local training, projector estimation, FedAvg, and one-shot
    MA-Echo on ``backend="kernel"`` (τ = 30).  B1/B4/B7 must launch 60
-   times each (2 kernel leaves × τ) and B2/B5/B8 never, the kernel
-   aggregate must match a ``backend="oracle"`` aggregate to 1e-3, and
-   MA-Echo must beat both the best client and FedAvg by 0.05 test
-   accuracy.
+   times each (2 kernel leaves × τ) and no other kernel, MA-Echo must
+   beat both the best client and FedAvg by 0.05 test accuracy, and a
+   τ = 5 kernel aggregate must match a τ = 5 ``backend="oracle"``
+   aggregate to 1e-3.
 3. The factored path (paper Table 6): the same clients' projectors
    factored on the card by ``factor_projection_tree(p, 78)``, then the
-   same aggregate on both backends.  B2/B5/B8 must launch 60 times
-   each and B1/B4/B7 never (no silent dense restore), the two
-   aggregates must agree to 1e-3, and factored MA-Echo must beat the
-   best client and FedAvg by 0.05.
+   same aggregates.  B2/B5/B8 must launch 60 times each and no other
+   kernel (no silent dense restore), factored MA-Echo must beat the
+   best client and FedAvg by 0.05, and the τ = 5 kernel and oracle
+   aggregates must agree to 1e-3.
+4. The scalar-projector path: ``maecho_aggregate(projections=None,
+   backend="kernel")`` on the same clients at τ = 5 (the default
+   scalar rule, broadcast to diagonals on W0/W1).  B3/B6/B9 must launch
+   10 times each (2 × τ) and no other kernel, and the aggregate must
+   match the τ = 5 oracle aggregate to 1e-3.  Its accuracy is printed,
+   not checked (the scalar rule is a consensus pull; the paper claims
+   nothing for it).
+5. The paper CNN (conv 32-64-64, fc 1024-256-128-10) at full width on
+   the synthetic CIFAR-10, 4 clients, Dirichlet(0.05), the MLP's local
+   recipe, the clients' dense projectors (conv ones on the im2col
+   patches).  B1/B4/B7 must launch 60 times each on fc0 and fc1 in the
+   τ = 30 aggregate (the convs and fc2 are below one tile and run the
+   oracle) and no other kernel, and the τ = 5 kernel and oracle
+   aggregates must agree to 1e-3.  The clients', FedAvg's and
+   MA-Echo's accuracies are printed, not checked.
 
 It prints each phase's time, the QP's and the kernels' time inside a
 kernel aggregate of each path (CUDA events around each call), a
@@ -52,7 +70,8 @@ SRC = ROOT / "src"
 
 FP32_FLOPS = 67e12      # H100 SXM fp32 peak outside the tensor cores
 HBM_BYTES = 3.35e12     # H100 SXM HBM3 bandwidth
-TAU = 30
+TAU = 30               # the accuracy aggregates
+TAU_CHECK = 5          # kernel-vs-oracle comparisons and the scalar path
 RANK = 78               # table6_svd.py's "factored0.1": int(0.1 * 784)
 GRAM_RTOL = 1e-5        # |G - G_plain| <= GRAM_RTOL * max|G_plain| (fp32 sum order)
 APPLY_ATOL = 1e-4       # Eq. 7 / Eq. 11 outputs, as the reference's kernel tests
@@ -60,13 +79,17 @@ AGG_ATOL = 1e-3         # kernel vs oracle aggregate, as the reference's tests
 MARGIN = 0.05           # accuracy margin pinned by tests/test_paper_fidelity.py
 DENSE = ("maecho_gram", "maecho_update", "maecho_v_update")                 # B1 B4 B7
 FACTORED = ("maecho_gram_left", "maecho_update_left", "maecho_v_update_factored")  # B2 B5 B8
-KERNELS = DENSE + FACTORED
+DIAG = ("maecho_gram_diag", "maecho_update_diag", "maecho_v_update_diag")  # B3 B6 B9
+KERNELS = DENSE + FACTORED + DIAG
 REPLACES = {"maecho_gram": "src/repro/kernels/maecho_gram.py:131",
             "maecho_update": "src/repro/kernels/maecho_update.py:76",
             "maecho_v_update": "src/repro/kernels/maecho_v_update.py:107",
             "maecho_gram_left": "src/repro/kernels/maecho_gram.py:194",
             "maecho_update_left": "src/repro/kernels/maecho_update.py:141",
-            "maecho_v_update_factored": "src/repro/kernels/maecho_v_update.py:146"}
+            "maecho_v_update_factored": "src/repro/kernels/maecho_v_update.py:146",
+            "maecho_gram_diag": "src/repro/kernels/maecho_gram.py:396",
+            "maecho_update_diag": "src/repro/kernels/maecho_update.py:293",
+            "maecho_v_update_diag": "src/repro/kernels/maecho_v_update.py:315"}
 
 
 def fail(msg: str) -> None:
@@ -275,6 +298,74 @@ def phase_factored_kernels(torch, kern, ref):
     return err, timings
 
 
+def phase_diag_kernels(torch, kern, ref):
+    """B3/B6/B9 vs plain on the card with non-uniform diagonals p in
+    [0, 1]; returns (errors, timings) keyed like :func:`phase_kernels`'."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    frac, eta = 20.0 / 21.0, 0.5
+
+    def inputs(out_d, in_d, N):
+        W = torch.randn(out_d, in_d, device="cuda", generator=gen) * 0.1
+        V = W + torch.randn(N, out_d, in_d, device="cuda", generator=gen) * 0.05
+        p = torch.rand(N, in_d, device="cuda", generator=gen)
+        alpha = torch.softmax(torch.randn(N, device="cuda", generator=gen), 0)
+        return W, V, p, alpha
+
+    err = {name: 0.0 for name in DIAG}
+    for label, out_d, in_d, N in (("W0", 400, 784, 4), ("W1", 200, 400, 4),
+                                  ("ragged", 1000, 1100, 8)):
+        W, V, p, alpha = inputs(out_d, in_d, N)
+        tag = f"{label} ({out_d}x{in_d}, N={N})"
+        G, Gr = kern.maecho_gram_diag(W, V, p), ref.maecho_gram_diag_ref(W, V, p)
+        e = (G - Gr).abs().max().item()
+        tol = GRAM_RTOL * Gr.abs().max().item()
+        print(f"[kernels] {tag} maecho_gram_diag max_abs_err {e:.3e} tol {tol:.3e}")
+        check(e <= tol, f"maecho_gram_diag disagrees at {tag}")
+        check(torch.equal(G, kern.maecho_gram_diag(W, V, p)),
+              f"maecho_gram_diag is not reproducible at {tag}")
+        err["maecho_gram_diag"] = max(err["maecho_gram_diag"], e)
+        Wn = kern.maecho_update_diag(W, V, p, alpha, eta)
+        e = (Wn - ref.maecho_update_diag_ref(W, V, p, alpha, eta)).abs().max().item()
+        print(f"[kernels] {tag} maecho_update_diag max_abs_err {e:.3e} tol {APPLY_ATOL:.0e}")
+        check(e <= APPLY_ATOL, f"maecho_update_diag disagrees at {tag}")
+        err["maecho_update_diag"] = max(err["maecho_update_diag"], e)
+        for norm in (False, True):
+            Vn = kern.maecho_v_update_diag(Wn, V, p, frac, norm)
+            e = (Vn - ref.maecho_v_update_diag_ref(Wn, V, p, frac, norm)).abs().max().item()
+            print(f"[kernels] {tag} maecho_v_update_diag norm={norm} "
+                  f"max_abs_err {e:.3e} tol {APPLY_ATOL:.0e}")
+            check(e <= APPLY_ATOL, f"maecho_v_update_diag (norm={norm}) disagrees at {tag}")
+            check((Vn - V).abs().max().item() > 0, "maecho_v_update_diag left V unchanged")
+            err["maecho_v_update_diag"] = max(err["maecho_v_update_diag"], e)
+    torch.cuda.synchronize()
+
+    # Bounds: the elementwise residual (W − Vᵢ)·pᵢ costs 2 operations an
+    # element and client, the symmetric pair contraction N(N+1) more;
+    # Eq. 7 adds the α-scaled client sum, Eq. 11 (norm off) 1 − frac·pᵢ
+    # and the add to Vᵢ.
+    timings = {}
+    for label, out_d, in_d, N in (("W0", 400, 784, 4), ("W1", 200, 400, 4)):
+        W, V, p, alpha = inputs(out_d, in_d, N)
+        Wn = kern.maecho_update_diag(W, V, p, alpha, eta)
+        OI, NI = out_d * in_d, N * in_d
+        cases = {
+            "maecho_gram_diag": (lambda: kern.maecho_gram_diag(W, V, p),
+                                 lambda: ref.maecho_gram_diag_ref(W, V, p),
+                                 2.0 * N * OI + N * (N + 1) * OI,
+                                 4.0 * (OI + N * OI + NI + N * N)),
+            "maecho_update_diag": (lambda: kern.maecho_update_diag(W, V, p, alpha, eta),
+                                   lambda: ref.maecho_update_diag_ref(W, V, p, alpha, eta),
+                                   4.0 * N * OI + 2.0 * OI,
+                                   4.0 * (2 * OI + N * OI + NI + N)),
+            "maecho_v_update_diag": (lambda: kern.maecho_v_update_diag(Wn, V, p, frac),
+                                     lambda: ref.maecho_v_update_diag_ref(Wn, V, p, frac),
+                                     5.0 * N * OI,
+                                     4.0 * (OI + 2 * N * OI + NI)),
+        }
+        time_cases(torch, label, cases, timings)
+    return err, timings
+
+
 def count_launches(torch, kern, run):
     """Set every kernel's launch count to 0, call ``run()``, synchronise
     and return (its result, {kernel name: launches})."""
@@ -285,81 +376,86 @@ def count_launches(torch, kern, run):
     return out, {k.__name__: k.launches for k in kern.all}
 
 
+def max_diff(a, b) -> float:
+    return max((x[k] - y[k]).abs().max().item()
+               for x, y in zip(a, b) for k in ("W", "b"))
+
+
+def aggregates(torch, kern, run, tau: int) -> dict:
+    """``run(tau, backend)`` returns one aggregate.  The ``backend="kernel"``
+    aggregate at ``tau`` runs with its launches counted and CUDA events
+    around each call; then kernel and oracle aggregates at TAU_CHECK
+    (the first reused when ``tau`` is TAU_CHECK) give max |ΔW|."""
+    (agg, t_agg, spans), launches = count_launches(
+        torch, kern, lambda: timed_calls(torch, lambda: run(tau, "kernel")))
+    t0 = time.perf_counter()
+    g_kernel = agg if tau == TAU_CHECK else run(TAU_CHECK, "kernel")
+    g_oracle = run(TAU_CHECK, "oracle")
+    torch.cuda.synchronize()
+    return dict(agg=agg, t_agg=t_agg, spans=spans, launches=launches,
+                t_check=time.perf_counter() - t0, diff=max_diff(g_kernel, g_oracle))
+
+
+def train_clients(torch, spec, data, parts, seed_init: int = 3):
+    """Local training and projector estimation of one client per part,
+    from one seeded init, the paper's recipe cut to 200 steps."""
+    from repro_torch.fl import models as pm
+    from repro_torch.fl.client import (LocalTrainConfig, compute_projections,
+                                       evaluate_classifier, train_classifier)
+
+    test = (data["test_x"], data["test_y"])
+    init = pm.init(spec, seed=seed_init)
+    local = LocalTrainConfig(epochs=6, max_steps=200, seed=5)
+    t0 = time.perf_counter()
+    clients = [train_classifier(spec, init, data["train_x"][ix], data["train_y"][ix],
+                                local)[0] for ix in parts]
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t0
+    local_accs = [evaluate_classifier(spec, p, *test) for p in clients]
+    t0 = time.perf_counter()
+    projs = [compute_projections(spec, p, data["train_x"][ix])
+             for p, ix in zip(clients, parts)]
+    torch.cuda.synchronize()
+    return dict(clients=clients, projs=projs, test=test, local_accs=local_accs,
+                t_train=t_train, t_proj=time.perf_counter() - t0)
+
+
 def phase_main_path(torch, kern):
     from repro_torch.core.maecho import MAEchoConfig
     from repro_torch.data.partition import dirichlet_partition
     from repro_torch.data.synthetic import DatasetSpec, generate
     from repro_torch.fl import models as pm
-    from repro_torch.fl.client import (LocalTrainConfig, compute_projections,
-                                       evaluate_classifier, train_classifier)
+    from repro_torch.fl.client import evaluate_classifier
     from repro_torch.fl.server import one_shot_aggregate
 
     spec = pm.MLP_SPEC
     data = generate(DatasetSpec("fidelity", n_train=6000, n_test=1200,
                                 latent=24, out_dim=784, seed=0))
     parts = dirichlet_partition(data["train_y"], 4, 0.05, seed=1)
-    test = (data["test_x"], data["test_y"])
-    init = pm.init(spec, seed=3)
-    local = LocalTrainConfig(epochs=6, max_steps=200, seed=5)
-
-    t0 = time.perf_counter()
-    clients = []
-    for ix in parts:
-        p, _ = train_classifier(spec, init, data["train_x"][ix],
-                                data["train_y"][ix], local)
-        clients.append(p)
-    torch.cuda.synchronize()
-    t_train = time.perf_counter() - t0
-    local_accs = [evaluate_classifier(spec, p, *test) for p in clients]
-
-    t0 = time.perf_counter()
-    projs = [compute_projections(spec, p, data["train_x"][ix])
-             for p, ix in zip(clients, parts)]
-    torch.cuda.synchronize()
-    t_proj = time.perf_counter() - t0
-
-    acc_fedavg = evaluate_classifier(
+    r = train_clients(torch, spec, data, parts)
+    clients, projs, test = r["clients"], r["projs"], r["test"]
+    r["acc_fedavg"] = evaluate_classifier(
         spec, one_shot_aggregate(spec, clients, None, "fedavg"), *test)
-    cfg = MAEchoConfig(tau=TAU, eta=0.5, mu=20.0)
 
-    t0 = time.perf_counter()
-    g_kernel, launches = count_launches(
-        torch, kern, lambda: one_shot_aggregate(spec, clients, projs, "maecho", cfg,
-                                         backend="kernel"))
-    t_agg = time.perf_counter() - t0
+    def run(tau, backend):
+        cfg = MAEchoConfig(tau=tau, eta=0.5, mu=20.0)
+        return one_shot_aggregate(spec, clients, projs, "maecho", cfg, backend=backend)
 
-    t0 = time.perf_counter()
-    g_oracle = one_shot_aggregate(spec, clients, projs, "maecho", cfg,
-                                  backend="oracle")
-    torch.cuda.synchronize()
-    t_oracle = time.perf_counter() - t0
-
-    diff = max((a[k] - b[k]).abs().max().item()
-               for a, b in zip(g_kernel, g_oracle) for k in ("W", "b"))
-    acc_maecho = evaluate_classifier(spec, g_kernel, *test)
-    acc_oracle = evaluate_classifier(spec, g_oracle, *test)
-
-    _, t_timed, spans = timed_calls(
-        torch, lambda: one_shot_aggregate(spec, clients, projs, "maecho", cfg,
-                                          backend="kernel"))
-    return dict(t_train=t_train, t_proj=t_proj, t_agg=t_agg, t_oracle=t_oracle,
-                launches=launches, diff=diff, local_accs=local_accs,
-                acc_fedavg=acc_fedavg, acc_maecho=acc_maecho,
-                acc_oracle=acc_oracle, t_timed=t_timed, spans=spans,
-                clients=clients, projs=projs, test=test, cfg=cfg)
+    r.update(aggregates(torch, kern, run, TAU))
+    r["acc_maecho"] = evaluate_classifier(spec, r["agg"], *test)
+    return r
 
 
 def phase_factored_path(torch, kern, dense):
     """The dense phase's clients with their projectors factored on the
-    card at rank 78, aggregated on the kernel backend (CUDA events
-    around each call, launch counts read around the same run) and on
-    the oracle backend."""
+    card at rank 78, through :func:`aggregates`."""
+    from repro_torch.core.maecho import MAEchoConfig
     from repro_torch.core.projections import factor_projection_tree
     from repro_torch.fl import models as pm
     from repro_torch.fl.client import evaluate_classifier
     from repro_torch.fl.server import one_shot_aggregate
 
-    spec, clients, cfg = pm.MLP_SPEC, dense["clients"], dense["cfg"]
+    spec, clients = pm.MLP_SPEC, dense["clients"]
     t0 = time.perf_counter()
     projs = [factor_projection_tree(p, RANK) for p in dense["projs"]]
     torch.cuda.synchronize()
@@ -369,20 +465,70 @@ def phase_factored_path(torch, kern, dense):
     check(shapes == [(784, RANK), (400, RANK), (200, RANK), (100, RANK)],
           f"factor_projection_tree gave U shapes {shapes}")
 
-    (g_kernel, t_agg, spans), launches = count_launches(
-        torch, kern, lambda: timed_calls(torch, lambda: one_shot_aggregate(
-            spec, clients, projs, "maecho", cfg, backend="kernel")))
+    def run(tau, backend):
+        cfg = MAEchoConfig(tau=tau, eta=0.5, mu=20.0)
+        return one_shot_aggregate(spec, clients, projs, "maecho", cfg, backend=backend)
+
+    f = aggregates(torch, kern, run, TAU)
+    f.update(t_factor=t_factor,
+             acc_maecho=evaluate_classifier(spec, f["agg"], *dense["test"]))
+    return f
+
+
+def phase_scalar_path(torch, kern, dense):
+    """The dense phase's clients with no projectors: the default scalar
+    rule, which the kernel route broadcasts to (N, in) diagonals on W0
+    and W1 (B3/B6/B9), at τ = TAU_CHECK."""
+    from repro_torch.core.maecho import MAEchoConfig, maecho_aggregate
+    from repro_torch.fl import models as pm
+    from repro_torch.fl.client import evaluate_classifier
+
+    def run(tau, backend):
+        return maecho_aggregate(dense["clients"], None,
+                                MAEchoConfig(tau=tau, eta=0.5, mu=20.0), backend=backend)
+
+    s = aggregates(torch, kern, run, TAU_CHECK)
+    s["acc_maecho"] = evaluate_classifier(pm.MLP_SPEC, s["agg"], *dense["test"])
+    return s
+
+
+def phase_cnn_path(torch, kern):
+    """The paper CNN at full width on the synthetic CIFAR-10: 4 clients on
+    a Dirichlet(0.05) split, local training, projectors, FedAvg and
+    MA-Echo through :func:`aggregates`."""
+    from repro_torch.core.maecho import MAEchoConfig
+    from repro_torch.data.partition import dirichlet_partition
+    from repro_torch.data.synthetic import CIFAR_LIKE, generate
+    from repro_torch.fl import models as pm
+    from repro_torch.fl.client import evaluate_classifier
+    from repro_torch.fl.server import one_shot_aggregate
+
+    spec = pm.CNN_SPEC
     t0 = time.perf_counter()
-    g_oracle = one_shot_aggregate(spec, clients, projs, "maecho", cfg,
-                                  backend="oracle")
-    torch.cuda.synchronize()
-    t_oracle = time.perf_counter() - t0
-    diff = max((a[k] - b[k]).abs().max().item()
-               for a, b in zip(g_kernel, g_oracle) for k in ("W", "b"))
-    return dict(t_factor=t_factor, t_agg=t_agg, t_oracle=t_oracle,
-                spans=spans, launches=launches, diff=diff,
-                acc_maecho=evaluate_classifier(spec, g_kernel, *dense["test"]),
-                acc_oracle=evaluate_classifier(spec, g_oracle, *dense["test"]))
+    data = generate(CIFAR_LIKE)
+    t_data = time.perf_counter() - t0
+    parts = dirichlet_partition(data["train_y"], 4, 0.05, seed=1)
+    r = train_clients(torch, spec, data, parts)
+    clients, projs, test = r["clients"], r["projs"], r["test"]
+    shapes = [tuple(p["W"].shape) for p in projs[0]]
+    print(f"[cnn] layer shapes {[tuple(lay['W'].shape) for lay in clients[0]]}, "
+          f"projector shapes {shapes}")
+    check(shapes == [(27, 27), (288, 288), (576, 576), (1024, 1024), (256, 256),
+                     (128, 128)], f"CNN projector shapes {shapes}")
+    r["acc_fedavg"] = evaluate_classifier(
+        spec, one_shot_aggregate(spec, clients, None, "fedavg"), *test)
+
+    def run(tau, backend):
+        cfg = MAEchoConfig(tau=tau, eta=0.5, mu=20.0)
+        return one_shot_aggregate(spec, clients, projs, "maecho", cfg, backend=backend)
+
+    r.update(aggregates(torch, kern, run, TAU))
+    r.update(t_data=t_data, acc_maecho=evaluate_classifier(spec, r["agg"], *test))
+    check(all(tuple(a["W"].shape) == tuple(b["W"].shape)
+              and bool(torch.isfinite(a["W"]).all())
+              for a, b in zip(r["agg"], clients[0], strict=True)),
+          "CNN aggregate has bad shapes or values")
+    return r
 
 
 def timed_calls(torch, run):
@@ -422,7 +568,7 @@ def timed_calls(torch, run):
                        for name, ev in events.items()}
 
 
-def report_split(what: str, wall_s: float, spans: dict, names, alone_ms: float):
+def report_split(what: str, wall_s: float, spans: dict, names, alone_ms=None):
     wall_ms = wall_s * 1e3
     qp_ms = spans["solve_qp_batched"]
     kern_ms = sum(spans[n] for n in names)
@@ -431,18 +577,25 @@ def report_split(what: str, wall_s: float, spans: dict, names, alone_ms: float):
           f"({100 * qp_ms / wall_ms:.2f} %), kernel calls {kern_ms:.3f} ms "
           f"({100 * kern_ms / wall_ms:.3f} %; "
           + ", ".join(f"{n} {spans[n]:.3f}" for n in names)
-          + f"), rest {wall_ms - qp_ms - kern_ms:.3f} ms; the same calls' device "
-          f"time (phase 1 times) {alone_ms:.3f} ms")
+          + f"), rest {wall_ms - qp_ms - kern_ms:.3f} ms"
+          + ("" if alone_ms is None else f"; the same calls' device time "
+             f"(phase 1 times) {alone_ms:.3f} ms"))
 
 
-def check_launches(path: str, launches: dict, ran, idle) -> None:
+def check_path(path: str, r: dict, ran, tau: int) -> None:
+    """The path's kernels in ``ran`` launched 2·τ times (two kernel
+    leaves), every other kernel never; kernel and oracle aggregates at
+    TAU_CHECK within AGG_ATOL."""
+    launches = r["launches"]
     print(f"[launches] {path} path: {launches}")
-    for name in ran:
-        check(launches[name] == 2 * TAU, f"{name} ran {launches[name]} times on the "
-              f"{path} path, expected {2 * TAU}")
-    for name in idle:
-        check(launches[name] == 0, f"{name} ran {launches[name]} times on the "
-              f"{path} path, expected 0")
+    for name in KERNELS:
+        want = 2 * tau if name in ran else 0
+        check(launches[name] == want, f"{name} ran {launches[name]} times on the "
+              f"{path} path, expected {want}")
+    print(f"[check] {path}: kernel-vs-oracle max |dW| at tau={TAU_CHECK} "
+          f"{r['diff']:.3e} tol {AGG_ATOL:.0e}")
+    check(r["diff"] <= AGG_ATOL,
+          f"{path} kernel aggregate disagrees with the oracle aggregate")
 
 
 def check_accuracy(path: str, acc: float, local_accs, acc_fedavg: float) -> None:
@@ -475,7 +628,10 @@ def main() -> None:
         maecho_gram_left=maecho_gram.maecho_gram_left,
         maecho_update_left=maecho_update.maecho_update_left,
         maecho_v_update_factored=maecho_v_update.maecho_v_update_factored,
-        maecho_v_update_left=maecho_v_update.maecho_v_update_left)
+        maecho_v_update_left=maecho_v_update.maecho_v_update_left,
+        maecho_gram_diag=maecho_gram.maecho_gram_diag,
+        maecho_update_diag=maecho_update.maecho_update_diag,
+        maecho_v_update_diag=maecho_v_update.maecho_v_update_diag)
     kern.all = [getattr(kern, n) for n in KERNELS]
 
     smi = subprocess.run(
@@ -493,51 +649,73 @@ def main() -> None:
 
     t0 = time.perf_counter()
     err, timings = phase_kernels(torch, kern, ref)
-    ferr, ftimings = phase_factored_kernels(torch, kern, ref)
-    err.update(ferr)
-    timings.update(ftimings)
+    for phase in (phase_factored_kernels, phase_diag_kernels):
+        e, t = phase(torch, kern, ref)
+        err.update(e)
+        timings.update(t)
     print(f"[phase] kernels-vs-plain {time.perf_counter() - t0:.3f} s")
+
+    def device_ms(names, label_suffix="", tau=TAU):
+        return tau * sum(timings[(n, l + label_suffix)][0]
+                         for n in names for l in ("W0", "W1"))
 
     t0 = time.perf_counter()
     r = phase_main_path(torch, kern)
     print(f"[phase] main path {time.perf_counter() - t0:.3f} s: train "
           f"{r['t_train']:.3f} s, projections {r['t_proj']:.3f} s, aggregate "
-          f"(kernel) {r['t_agg']:.3f} s, aggregate (oracle) {r['t_oracle']:.3f} s")
-    report_split("one more dense kernel aggregate", r["t_timed"], r["spans"], DENSE,
-                 TAU * sum(timings[(n, l)][0] for n in DENSE for l in ("W0", "W1")))
+          f"(kernel, tau={TAU}, timed) {r['t_agg']:.3f} s, kernel and oracle "
+          f"aggregates (tau={TAU_CHECK}) {r['t_check']:.3f} s")
+    report_split("the dense kernel aggregate", r["t_agg"], r["spans"], DENSE,
+                 device_ms(DENSE))
     print(f"[accuracy] dense: clients {[round(a, 4) for a in r['local_accs']]}, "
-          f"fedavg {r['acc_fedavg']:.4f}, maecho(kernel) {r['acc_maecho']:.4f}, "
-          f"maecho(oracle) {r['acc_oracle']:.4f}; kernel-vs-oracle max |dW| "
-          f"{r['diff']:.3e} tol {AGG_ATOL:.0e}")
-    check_launches("dense", r["launches"], DENSE, FACTORED)
-    check(r["diff"] <= AGG_ATOL, "dense kernel aggregate disagrees with the oracle aggregate")
+          f"fedavg {r['acc_fedavg']:.4f}, maecho(kernel, tau={TAU}) {r['acc_maecho']:.4f}")
+    check_path("dense", r, DENSE, TAU)
     check_accuracy("dense", r["acc_maecho"], r["local_accs"], r["acc_fedavg"])
 
     t0 = time.perf_counter()
     f = phase_factored_path(torch, kern, r)
     print(f"[phase] factored path {time.perf_counter() - t0:.3f} s: factor "
-          f"{f['t_factor']:.3f} s, aggregate (kernel, timed) {f['t_agg']:.3f} s, "
-          f"aggregate (oracle) {f['t_oracle']:.3f} s")
+          f"{f['t_factor']:.3f} s, aggregate (kernel, tau={TAU}, timed) "
+          f"{f['t_agg']:.3f} s, kernel and oracle aggregates (tau={TAU_CHECK}) "
+          f"{f['t_check']:.3f} s")
     report_split(f"the factored (k={RANK}) kernel aggregate", f["t_agg"], f["spans"],
-                 FACTORED, TAU * sum(timings[(n, l + f"k{RANK}")][0]
-                                     for n in FACTORED[:2] + (f"{FACTORED[2]} wrapper",)
-                                     for l in ("W0", "W1")))
-    print(f"[accuracy] factored k={RANK}: maecho(kernel) {f['acc_maecho']:.4f}, "
-          f"maecho(oracle) {f['acc_oracle']:.4f}; kernel-vs-oracle max |dW| "
-          f"{f['diff']:.3e} tol {AGG_ATOL:.0e}")
-    check_launches("factored", f["launches"], FACTORED, DENSE)
-    check(f["diff"] <= AGG_ATOL,
-          "factored kernel aggregate disagrees with the oracle aggregate")
+                 FACTORED, device_ms(FACTORED[:2] + (f"{FACTORED[2]} wrapper",),
+                                     f"k{RANK}"))
+    print(f"[accuracy] factored k={RANK}: maecho(kernel, tau={TAU}) {f['acc_maecho']:.4f}")
+    check_path("factored", f, FACTORED, TAU)
     check_accuracy("factored", f["acc_maecho"], r["local_accs"], r["acc_fedavg"])
 
+    t0 = time.perf_counter()
+    sc = phase_scalar_path(torch, kern, r)
+    print(f"[phase] scalar path {time.perf_counter() - t0:.3f} s: aggregate "
+          f"(kernel, tau={TAU_CHECK}, timed) {sc['t_agg']:.3f} s, oracle aggregate "
+          f"(tau={TAU_CHECK}) {sc['t_check']:.3f} s")
+    report_split("the scalar-projector kernel aggregate", sc["t_agg"], sc["spans"],
+                 DIAG, device_ms(DIAG, tau=TAU_CHECK))
+    print(f"[accuracy] scalar: maecho(kernel, tau={TAU_CHECK}) {sc['acc_maecho']:.4f} "
+          f"(not checked: the scalar rule is a consensus pull)")
+    check_path("scalar", sc, DIAG, TAU_CHECK)
+
+    t0 = time.perf_counter()
+    c = phase_cnn_path(torch, kern)
+    print(f"[phase] cnn path {time.perf_counter() - t0:.3f} s: data {c['t_data']:.3f} s, "
+          f"train {c['t_train']:.3f} s, projections {c['t_proj']:.3f} s, aggregate "
+          f"(kernel, tau={TAU}, timed) {c['t_agg']:.3f} s, kernel and oracle "
+          f"aggregates (tau={TAU_CHECK}) {c['t_check']:.3f} s")
+    report_split("the CNN kernel aggregate", c["t_agg"], c["spans"], DENSE)
+    print(f"[accuracy] cnn: clients {[round(a, 4) for a in c['local_accs']]}, "
+          f"fedavg {c['acc_fedavg']:.4f}, maecho(kernel, tau={TAU}) {c['acc_maecho']:.4f} "
+          f"(not checked)")
+    check_path("cnn", c, DENSE, TAU)
+
+    source = {**{n: r for n in DENSE}, **{n: f for n in FACTORED}, **{n: sc for n in DIAG}}
     rows = []
     for name in KERNELS:
-        dense = name in DENSE
-        ms, plain, b, by = timings[(name, "W0" if dense else f"W0k{RANK}")]
+        ms, plain, b, by = timings[(name, f"W0k{RANK}" if name in FACTORED else "W0")]
         rows.append({"name": name, "route": "cuda",
                      "source": f"src/repro_torch/kernels/csrc/{name}.cu",
                      "replaces": REPLACES[name],
-                     "launches": (r if dense else f)["launches"][name],
+                     "launches": source[name]["launches"][name],
                      "max_abs_err": err[name], "ms": ms, "plain_ms": plain,
                      "bound_ms": b, "bound_by": by, "library_ms": None})
     print(json.dumps({"kernels": rows}))

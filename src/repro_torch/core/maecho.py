@@ -23,8 +23,9 @@ Backends (:func:`maecho_aggregate`'s ``backend``):
   - ``"kernel"``: leaves with min(out, in) ≥ 128 run the fused
     streaming pipeline (``kernels.ops``): on a CUDA tensor the
     hand-written kernels B1 (Gram), B4 (Eq. 7) and B7 (Eq. 11) for
-    dense projectors, B2, B5 and B8 for factored ones.  Smaller leaves
-    and 1-D biases run the oracle.
+    dense projectors, B2, B5 and B8 for factored ones, B3, B6 and B9
+    for scalar and diagonal ones.  Smaller leaves and 1-D biases run
+    the oracle.
   - ``"auto"``: the same routing without fallback warnings.
 
 Routing is compiled once by ``core.plan.compile_plan``; the τ-loop

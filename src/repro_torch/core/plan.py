@@ -13,7 +13,7 @@ Routes in this port:
   ``oracle``   the plain PyTorch reference path.
   ``kernel``   the fused streaming pipeline (2-D leaf, min dim ≥ 128):
                CUDA kernels B1/B4/B7 for dense projectors, B2/B5/B8 for
-               factored ones.
+               factored ones, B3/B6/B9 for scalar and diagonal ones.
 
 The ``sharded`` / ``sharded2d`` backends (ROADMAP A11) and stacked
 leaves (A7) raise ``NotImplementedError``.

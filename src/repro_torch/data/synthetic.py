@@ -3,7 +3,8 @@
 K class prototypes in a latent space, Gaussian within-class jitter, a
 random tanh layer into a 2·latent hidden space, then a linear lift to
 the pixels with a dead-pixel mask — the low effective rank the paper's
-null-space projections rely on (paper §6).  The draws are the same
+null-space projections rely on (paper §6).  ``CIFAR_LIKE`` (3072 pixels)
+comes out as (n, 32, 32, 3) NHWC images.  The draws are the same
 ``np.random.RandomState`` sequence as ``repro.data.synthetic.generate``,
 so both packages see bit-identical arrays.
 """
@@ -28,6 +29,8 @@ class DatasetSpec:
 
 
 MNIST_LIKE = DatasetSpec("mnist-like", out_dim=784)
+CIFAR_LIKE = DatasetSpec("cifar-like", out_dim=3072, n_train=10_000,
+                         class_sep=2.0, noise=1.2)
 
 
 def generate(spec: DatasetSpec, domain: int = 0):

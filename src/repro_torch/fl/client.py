@@ -1,9 +1,10 @@
-"""Client-side FL: local training of the paper MLP and projection-matrix
-estimation (the one extra forward epoch the paper budgets in §6).
+"""Client-side FL: local training of the paper MLP or CNN and
+projection-matrix estimation (the one extra forward epoch the paper
+budgets in §6).
 
 Parameters travel as lists of ``{"W", "b"}`` dicts of tensors, the
-layout aggregation works on; training runs them through the ``MLP``
-module.
+layout aggregation works on (conv W 4-D); training runs them through
+the model's ``nn.Module`` (``fl.models.module``).
 """
 from __future__ import annotations
 
@@ -40,7 +41,7 @@ def train_classifier(spec: pm.PaperModelSpec, params, x, y,
         raise NotImplementedError(
             "FedProx local training is not ported yet (ROADMAP item A6)")
     dev = resolve_device(device)
-    model = pm.MLP(spec, layers=params, device=dev)
+    model = pm.module(spec, layers=params, device=dev)
     opt = SGD(model.parameters(), cfg.lr, cfg.momentum)
     xd = torch.as_tensor(x, device=dev)
     yd = torch.as_tensor(y, device=dev)
@@ -66,7 +67,7 @@ def evaluate_classifier(spec: pm.PaperModelSpec, params, x, y,
                         batch: int = 512, device=None) -> float:
     """Top-1 accuracy over whole batches of ``batch`` (all of x when it
     is smaller than one batch)."""
-    pm._require_mlp(spec)
+    pm._require_ported(spec)
     dev = resolve_device(device)
     layers = [{k: v.to(dev) for k, v in lay.items()} for lay in params]
     n = (len(x) // batch) * batch or len(x)
@@ -74,7 +75,7 @@ def evaluate_classifier(spec: pm.PaperModelSpec, params, x, y,
     yd = torch.as_tensor(y[:n], device=dev)
     correct = torch.zeros((), dtype=torch.int64, device=dev)
     for s in range(0, n, batch):
-        logits = pm.mlp_forward(layers, xd[s:s + batch])
+        logits = pm.forward(spec, layers, xd[s:s + batch])
         correct += (logits.argmax(-1) == yd[s:s + batch]).sum()
     return int(correct) / n
 
@@ -87,12 +88,15 @@ def compute_projections(spec: pm.PaperModelSpec, params, x,
 
     Returns a list matching ``params``: each "W" projector is the
     (d_in, d_in) row-space matrix P = I − Q from streaming block-RLS
-    over row-normalised features, each "b" projector the scalar full
-    rule.  ``alpha`` (the paper's z) is the energy floor.
+    over row-normalised features (for a conv layer the im2col patches,
+    so d_in = C_in·9 and P matches the flattened (C_out, C_in·9) kernel),
+    each "b" projector the scalar full rule.  ``alpha`` (the paper's z)
+    is the energy floor.
     """
-    pm._require_mlp(spec)
+    pm._require_ported(spec)
     dev = resolve_device(device)
-    layers = [{k: v.to(dev) for k, v in lay.items()} for lay in params]
+    layers = [{k: v.to(dev) for k, v in lay.items()}
+              for lay in _layer_list(spec, params)]
     n = min(len(x), max_samples)
     xs = x[:n]
     if n == 0:
@@ -102,8 +106,8 @@ def compute_projections(spec: pm.PaperModelSpec, params, x,
     xd = torch.as_tensor(xs, device=dev)
     Qs = None
     for s in range(0, n, batch):
-        _, feats = pm.mlp_forward(layers, xd[s:s + batch],
-                                  return_features=True)
+        _, feats = pm.forward(spec, layers, xd[s:s + batch],
+                              return_features=True)
         if Qs is None:
             Qs = [proj.null_projector_init(f.shape[-1], device=dev)
                   for f in feats]
@@ -113,5 +117,16 @@ def compute_projections(spec: pm.PaperModelSpec, params, x,
                                                keepdim=True).clamp_min(1e-6)
             Qs[i] = proj.null_projector_from_features_continue(Qs[i], f2, alpha)
     eye = [torch.eye(Q.shape[0], device=dev) for Q in Qs]
-    return [{"W": proj.symmetrize(I - Q), "b": torch.ones((), device=dev)}
-            for I, Q in zip(eye, Qs)]
+    return _relist(spec, params,
+                   [{"W": proj.symmetrize(I - Q), "b": torch.ones((), device=dev)}
+                    for I, Q in zip(eye, Qs)])
+
+
+def _layer_list(spec: pm.PaperModelSpec, params):
+    """The aggregated layer list: the CVAE's decoder ("dec"), else all."""
+    return params["dec"] if spec.kind == "cvae" else params
+
+
+def _relist(spec: pm.PaperModelSpec, params, entries):
+    """Per-layer ``entries`` back in ``params``' layout (:func:`_layer_list`'s inverse)."""
+    return {"dec": entries} if spec.kind == "cvae" else entries

@@ -30,7 +30,8 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SOURCES = ("maecho_gram", "maecho_update", "maecho_v_update",
-           "maecho_gram_left", "maecho_update_left", "maecho_v_update_factored")
+           "maecho_gram_left", "maecho_update_left", "maecho_v_update_factored",
+           "maecho_gram_diag", "maecho_update_diag", "maecho_v_update_diag")
 
 _libs: dict[str, ctypes.CDLL] = {}
 

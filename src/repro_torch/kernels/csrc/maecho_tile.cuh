@@ -1,5 +1,7 @@
 // Shared tile machinery of the MA-Echo kernels for Hopper (sm_90a):
 // B1/B2 (Eq. 6 Gram), B4/B5 (Eq. 7 update) and B7/B8 (Eq. 11 update).
+// The elementwise diagonal kernels B3/B6/B9 (maecho_*_diag.cu) use only
+// its constants and B3 its fixed-order gram_reduce_kernel.
 //
 // Each of them forms, for one client i and one 32x32 (out, in) tile, a
 // residual tile

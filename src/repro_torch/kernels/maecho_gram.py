@@ -3,7 +3,8 @@ Pᵢ (Rᵢ = (W − Vᵢ)Pᵢ, ``csrc/maecho_gram.cu``, port of
 ``repro/kernels/maecho_gram.py::maecho_gram``) and B2 for factored
 Pᵢ = Uᵢ·diag(sᵢ)·Uᵢᵀ (Rᵢ = Aᵢ @ UTᵢ, ``csrc/maecho_gram_left.cu``, port
 of ``maecho_gram_left``), plus the compressed residual A both factored
-passes start from.
+passes start from; and B3 for diagonal Pᵢ = diag(pᵢ) (Rᵢ = (W − Vᵢ)·pᵢ,
+``csrc/maecho_gram_diag.cu``, port of ``maecho_gram_diag``).
 
 On a CUDA tensor a wrapper launches its kernel (or raises); on a CPU
 tensor it runs the plain version in ``ref``.
@@ -97,3 +98,42 @@ def maecho_gram_left(A, UT):
 
 
 maecho_gram_left.launches = 0
+
+_DIAG_SIGS = {
+    "maecho_gram_diag_workspace_floats": (ctypes.c_longlong, [ctypes.c_int] * 3),
+    "maecho_gram_diag_max_clients": (ctypes.c_int, []),
+    "maecho_gram_diag_launch": (ctypes.c_int, [ctypes.c_void_p] * 5
+                                + [ctypes.c_int] * 3 + [ctypes.c_void_p]),
+}
+
+
+def maecho_gram_diag(W, V, p):
+    """B3, the wrapper of ``csrc/maecho_gram_diag.cu`` (port of
+    ``repro/kernels/maecho_gram.py::maecho_gram_diag``): the (N, N)
+    Gram of Rᵢ = (W − Vᵢ)·pᵢ from W (out, in), V (N, out, in) and the
+    diagonals p (N, in) float32.  Any out/in; N up to the kernel's
+    shared-memory cap (54)."""
+    if W.device.type == "cpu":
+        return ref.maecho_gram_diag_ref(W, V, p)
+    build.check_f32_cuda("maecho_gram_diag", W=W, V=V, p=p)
+    build.require(V.dim() == 3, f"maecho_gram_diag: V must be (N, out, in), got {tuple(V.shape)}")
+    N, out_d, in_d = V.shape
+    build.require(tuple(W.shape) == (out_d, in_d) and tuple(p.shape) == (N, in_d),
+                  f"maecho_gram_diag: shapes W {tuple(W.shape)}, V {tuple(V.shape)}, "
+                  f"p {tuple(p.shape)} do not match (out, in), (N, out, in), (N, in)")
+    lib = build.load("maecho_gram_diag", _DIAG_SIGS)
+    build.require(1 <= N <= lib.maecho_gram_diag_max_clients(),
+                  f"maecho_gram_diag: N={N} clients outside "
+                  f"1..{lib.maecho_gram_diag_max_clients()}")
+    ws = torch.empty(lib.maecho_gram_diag_workspace_floats(N, out_d, in_d),
+                     dtype=torch.float32, device=W.device)
+    G = torch.empty((N, N), dtype=torch.float32, device=W.device)
+    err = lib.maecho_gram_diag_launch(build.ptr(W), build.ptr(V), build.ptr(p),
+                                      build.ptr(ws), build.ptr(G), N, out_d, in_d,
+                                      build.stream())
+    build.check(err, "maecho_gram_diag")
+    maecho_gram_diag.launches += 1
+    return G
+
+
+maecho_gram_diag.launches = 0

@@ -2,7 +2,9 @@
 (Rᵢ = (W − Vᵢ)Pᵢ, ``csrc/maecho_update.cu``, port of
 ``repro/kernels/maecho_update.py::maecho_update``) and B5 for factored
 Pᵢ (Rᵢ = Aᵢ @ UTᵢ, ``csrc/maecho_update_left.cu``, port of
-``maecho_update_left``).
+``maecho_update_left``), and B6 for diagonal Pᵢ = diag(pᵢ)
+(Rᵢ = (W − Vᵢ)·pᵢ, ``csrc/maecho_update_diag.cu``, port of
+``maecho_update_diag``).
 
 On a CUDA tensor a wrapper launches its kernel (or raises); on a CPU
 tensor it runs the plain version in ``ref``.
@@ -82,3 +84,39 @@ def maecho_update_left(W, A, UT, alpha, eta: float = 1.0):
 
 
 maecho_update_left.launches = 0
+
+_DIAG_SIGS = {
+    "maecho_update_diag_launch": (ctypes.c_int, [ctypes.c_void_p] * 5
+                                  + [ctypes.c_int] * 3
+                                  + [ctypes.c_float, ctypes.c_void_p]),
+}
+
+
+def maecho_update_diag(W, V, p, alpha, eta: float = 1.0):
+    """B6, the wrapper of ``csrc/maecho_update_diag.cu`` (port of
+    ``repro/kernels/maecho_update.py::maecho_update_diag``): Eq. 7
+    elementwise, W' = W + η·Σᵢ(−2αᵢ)(W − Vᵢ)·pᵢ, for W (out, in),
+    V (N, out, in), p (N, in), alpha (N,) float32.  alpha stays on the
+    device (no host sync)."""
+    if W.device.type == "cpu":
+        return ref.maecho_update_diag_ref(W, V, p, alpha, eta)
+    build.check_f32_cuda("maecho_update_diag", W=W, V=V, p=p, alpha=alpha)
+    build.require(V.dim() == 3, f"maecho_update_diag: V must be (N, out, in), got {tuple(V.shape)}")
+    N, out_d, in_d = V.shape
+    build.require(N >= 1, f"maecho_update_diag: N={N} clients, need at least 1")
+    build.require(tuple(W.shape) == (out_d, in_d) and tuple(p.shape) == (N, in_d)
+                  and tuple(alpha.shape) == (N,),
+                  f"maecho_update_diag: shapes W {tuple(W.shape)}, V {tuple(V.shape)}, "
+                  f"p {tuple(p.shape)}, alpha {tuple(alpha.shape)} do not match "
+                  f"(out, in), (N, out, in), (N, in), (N,)")
+    lib = build.load("maecho_update_diag", _DIAG_SIGS)
+    out = torch.empty_like(W)
+    err = lib.maecho_update_diag_launch(build.ptr(W), build.ptr(V), build.ptr(p),
+                                        build.ptr(alpha), build.ptr(out), N, out_d,
+                                        in_d, float(eta), build.stream())
+    build.check(err, "maecho_update_diag")
+    maecho_update_diag.launches += 1
+    return out
+
+
+maecho_update_diag.launches = 0

@@ -2,7 +2,8 @@
 B7 for dense Pᵢ (``csrc/maecho_v_update.cu``, port of
 ``repro/kernels/maecho_v_update.py::maecho_v_update``) and B8 for
 factored Pᵢ (``csrc/maecho_v_update_factored.cu``, port of
-``maecho_v_update_factored``).
+``maecho_v_update_factored``), and B9 for diagonal Pᵢ = diag(pᵢ)
+(``csrc/maecho_v_update_diag.cu``, port of ``maecho_v_update_diag``).
 
 On a CUDA tensor a wrapper launches its kernel (or raises); on a CPU
 tensor it runs the plain version in ``ref``.
@@ -128,3 +129,41 @@ def maecho_v_update_left(B, UT, W, V, frac: float, norm: bool = False,
 
 
 maecho_v_update_factored.launches = 0
+
+_DIAG_SIGS = {
+    "maecho_v_update_diag_launch": (ctypes.c_int, [ctypes.c_void_p] * 4
+                                    + [ctypes.c_int] * 3
+                                    + [ctypes.c_float, ctypes.c_int,
+                                       ctypes.c_float, ctypes.c_void_p]),
+}
+
+
+def maecho_v_update_diag(W, V, p, frac: float, norm: bool = False,
+                         eps: float = 1e-12):
+    """B9, the wrapper of ``csrc/maecho_v_update_diag.cu`` (port of
+    ``repro/kernels/maecho_v_update.py::maecho_v_update_diag``): Eq. 11
+    elementwise, Vᵢ' = Vᵢ + Norm((W − Vᵢ)·(1 − frac·pᵢ)), V' (N, out, in)
+    from W (out, in) updated global, V (N, out, in) and p (N, in)
+    float32; ``norm`` row-normalises the update over the in-axis."""
+    if W.device.type == "cpu":
+        return ref.maecho_v_update_diag_ref(W, V, p, frac, norm, eps)
+    build.check_f32_cuda("maecho_v_update_diag", W=W, V=V, p=p)
+    build.require(V.dim() == 3, f"maecho_v_update_diag: V must be (N, out, in), "
+                                f"got {tuple(V.shape)}")
+    N, out_d, in_d = V.shape
+    build.require(N >= 1, f"maecho_v_update_diag: N={N} clients, need at least 1")
+    build.require(tuple(W.shape) == (out_d, in_d) and tuple(p.shape) == (N, in_d),
+                  f"maecho_v_update_diag: shapes W {tuple(W.shape)}, V {tuple(V.shape)}, "
+                  f"p {tuple(p.shape)} do not match (out, in), (N, out, in), (N, in)")
+    lib = build.load("maecho_v_update_diag", _DIAG_SIGS)
+    out = torch.empty_like(V)
+    err = lib.maecho_v_update_diag_launch(build.ptr(W), build.ptr(V), build.ptr(p),
+                                          build.ptr(out), N, out_d, in_d,
+                                          float(frac), int(norm), float(eps),
+                                          build.stream())
+    build.check(err, "maecho_v_update_diag")
+    maecho_v_update_diag.launches += 1
+    return out
+
+
+maecho_v_update_diag.launches = 0

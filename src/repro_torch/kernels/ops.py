@@ -5,14 +5,16 @@
 (Eq. 7 then Eq. 11) once per leaf per outer iteration.  Both assume
 the "oi" layout — ``core.maecho`` transposes "io" leaves first.
 
-Dense (``"full"``) projectors run the CUDA kernels B1/B4/B7 on a CUDA
-tensor, factored ones ``{"U", "s"}`` B2/B5/B8 (the Gram forms the
+On a CUDA tensor, dense (``"full"``) projectors run the CUDA kernels
+B1/B4/B7; factored ones ``{"U", "s"}`` B2/B5/B8 (the Gram forms the
 compressed residual A and Uᵀ once and hands them to Eq. 7 and Eq. 11
-through the reuse context).  Stacked scalar and diagonal projectors have no CUDA
-kernel yet: on a CUDA tensor they raise, on a CPU tensor they run the
-plain versions in ``ref``; so do the kernel wrappers themselves on a
-CPU tensor.  The CUDA kernels mask ragged edges on out, in and the
-rank, so no operand is zero-padded (the reference's ``_pad_to`` /
+through the reuse context); stacked scalars (N,) and diagonals (N, in)
+B3/B6/B9 (the Gram half broadcasts a scalar to an (N, in) diagonal once,
+the reference's ``_as_diag``, and hands the diagonal on through the
+reuse context).  On a CPU tensor every kernel wrapper runs its plain
+version in ``ref``.  Leaves below one 128-tile run the plain oracle.
+The CUDA kernels mask ragged edges on out, in and the rank, so no
+operand is zero-padded (the reference's ``_pad_to`` /
 ``_normalize_padded`` / ``_pad_factored`` have no counterpart here).
 """
 from __future__ import annotations
@@ -22,9 +24,11 @@ import warnings
 from repro_torch.core.plan import proj_kind
 from repro_torch.kernels import ref
 from repro_torch.kernels.maecho_gram import (compressed_residual, maecho_gram,
-                                             maecho_gram_left)
-from repro_torch.kernels.maecho_update import maecho_update, maecho_update_left
+                                             maecho_gram_diag, maecho_gram_left)
+from repro_torch.kernels.maecho_update import (maecho_update, maecho_update_diag,
+                                               maecho_update_left)
 from repro_torch.kernels.maecho_v_update import (maecho_v_update,
+                                                 maecho_v_update_diag,
                                                  maecho_v_update_factored)
 
 # below this edge a leaf runs the plain oracle (the reference's tile
@@ -41,14 +45,6 @@ def fallback_warn(msg: str) -> None:
     if msg not in _warned_fallbacks:
         _warned_fallbacks.add(msg)
         warnings.warn(msg, RuntimeWarning, stacklevel=3)
-
-
-def _no_kernel_yet(kind: str, W) -> None:
-    if W.is_cuda:
-        raise NotImplementedError(
-            f"projector kind {kind!r} has no CUDA kernel yet (kernels "
-            f"B3/B6/B9, ROADMAP item A4); use dense or factored "
-            f"projectors or backend='oracle'")
 
 
 def maecho_streaming_gram(W, V, P):
@@ -69,8 +65,8 @@ def maecho_streaming_gram(W, V, P):
         A = compressed_residual(W, V, U, s)
         UT = U.transpose(1, 2).contiguous()
         return maecho_gram_left(A, UT), (kind, W, V, (U, s, A, UT))
-    _no_kernel_yet(kind, W)
-    return ref.maecho_gram_ref(W, V, P), (kind, W, V, P)
+    p = P[:, None].expand(-1, in_d).contiguous() if kind == "scalar" else P
+    return maecho_gram_diag(W, V, p), ("diag", W, V, p)
 
 
 def maecho_streaming_apply(alpha, ctx, *, eta: float = 1.0,
@@ -87,7 +83,8 @@ def maecho_streaming_apply(alpha, ctx, *, eta: float = 1.0,
         U, s, A, UT = P
         Wn = maecho_update_left(W, A, UT, alpha, eta)
         return Wn, maecho_v_update_factored(Wn, V, U, s, frac, norm, eps, UT=UT)
-    if kind != "ref":
-        _no_kernel_yet(kind, W)
+    if kind == "diag":
+        Wn = maecho_update_diag(W, V, P, alpha, eta)
+        return Wn, maecho_v_update_diag(Wn, V, P, frac, norm, eps)
     Wn = ref.maecho_update_ref_any(W, V, P, alpha, eta)
     return Wn, ref.maecho_v_update_ref(Wn, V, P, frac, norm, eps)

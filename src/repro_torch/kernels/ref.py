@@ -5,8 +5,9 @@ The functions of ``(W, V, P)`` accept every projector kind the core
 algebra understands — stacked scalars (N,), diagonals (N, in), dense
 (N, in, in) and factored ``{"U": (N, in, k), "s": (N, k)}`` — through
 ``core.maecho._apply_P`` (imported lazily: ``core`` imports this
-package for dispatch).  The factored-only ones at the end take the
-projector's factors, as the kernels B2/B5/B8 do.
+package for dispatch).  The factored-only ones take the projector's
+factors, as the kernels B2/B5/B8 do; the diagonal-only ones at the end
+take the (N, in) diagonal, as B3/B6/B9 do.
 """
 from __future__ import annotations
 
@@ -91,3 +92,30 @@ def maecho_v_update_factored_ref(W, V, U, s, frac: float,
     with B = ``compressed_residual_ref(W, V, U, s)`` and UT = Uᵀ."""
     return maecho_v_update_left_ref(compressed_residual_ref(W, V, U, s),
                                     U.transpose(1, 2), W, V, frac, norm, eps)
+
+
+# --------------------------------------------------------------------------
+# diagonal projectors Pᵢ = diag(pᵢ), p (N, in) (scalars arrive broadcast):
+# the residual is elementwise, Rᵢ = (W − Vᵢ)·pᵢ[None, :]
+# --------------------------------------------------------------------------
+def maecho_gram_diag_ref(W, V, p):
+    """G[i, j] = ⟨Rᵢ, Rⱼ⟩ with Rᵢ = (W − Vᵢ)·pᵢ, p (N, in)."""
+    R = ((W[None] - V).float() * p.float()[:, None, :]).reshape(V.shape[0], -1)
+    return R @ R.T
+
+
+def maecho_update_diag_ref(W, V, p, alpha, eta: float = 1.0):
+    """Eq. 7 elementwise: W' = W + η·Σᵢ(−2αᵢ)(W − Vᵢ)·pᵢ."""
+    R = (W[None] - V).float() * p.float()[:, None, :]
+    D = -2.0 * torch.tensordot(alpha.float(), R, dims=([0], [0]))
+    return (W.float() + eta * D).to(W.dtype)
+
+
+def maecho_v_update_diag_ref(W, V, p, frac: float, norm: bool = False,
+                             eps: float = 1e-12):
+    """Eq. 11 elementwise: Vᵢ' = Vᵢ + Norm((W − Vᵢ)·(1 − frac·pᵢ)), the
+    TPU kernel's form of Δᵢ − frac·Δᵢ·pᵢ."""
+    u = (W[None] - V).float() * (1.0 - frac * p.float()[:, None, :])
+    if norm:
+        u = u / torch.linalg.vector_norm(u, dim=-1, keepdim=True).clamp_min(eps)
+    return (V.float() + u).to(V.dtype)

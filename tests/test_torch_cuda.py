@@ -1,4 +1,4 @@
-"""The CUDA kernels B1/B4/B7 and B2/B5/B8 against their plain versions on the card
+"""The CUDA kernels B1/B4/B7, B2/B5/B8 and B3/B6/B9 against their plain versions on the card
 (``PYTHONPATH=src python -m pytest --noconftest tests/test_torch_cuda.py``
 on a machine with an NVIDIA Hopper GPU and ``nvcc``; ``--noconftest``
 because ``tests/conftest.py`` imports jax, which such a machine need not
@@ -11,9 +11,11 @@ import torch
 from repro_torch.core.maecho import MAEchoConfig, maecho_aggregate
 from repro_torch.kernels import ref
 from repro_torch.kernels.maecho_gram import (compressed_residual, maecho_gram,
-                                             maecho_gram_left)
-from repro_torch.kernels.maecho_update import maecho_update, maecho_update_left
+                                             maecho_gram_diag, maecho_gram_left)
+from repro_torch.kernels.maecho_update import (maecho_update, maecho_update_diag,
+                                               maecho_update_left)
 from repro_torch.kernels.maecho_v_update import (maecho_v_update,
+                                                 maecho_v_update_diag,
                                                  maecho_v_update_factored,
                                                  maecho_v_update_left)
 
@@ -121,10 +123,26 @@ def test_factored_wrappers_reject_bad_operands(card):
                              torch.zeros(2, 8, 8, device="cuda"), 0.5)
 
 
-def test_factored_aggregate_runs_other_kinds_raise(card):
-    """A factored kernel aggregate runs B2/B5/B8 on the card; scalar
-    (``projections=None``) and diagonal projectors still have no kernel
-    and raise, naming B3/B6/B9."""
+def _aggregate_launches(clients, projs, cfg, kernels):
+    """Launches of ``kernels`` in one kernel aggregate, and that
+    aggregate against the oracle's (1e-3)."""
+    before = [k.launches for k in kernels]
+    got = maecho_aggregate(clients, projs, cfg, backend="kernel")
+    torch.cuda.synchronize()
+    launches = [k.launches - b for k, b in zip(kernels, before)]
+    want = maecho_aggregate(clients, projs, cfg, backend="oracle")
+    torch.testing.assert_close(got["W"], want["W"], atol=1e-3, rtol=0)
+    return launches
+
+
+DIAG = (maecho_gram_diag, maecho_update_diag, maecho_v_update_diag)
+OTHERS = (maecho_gram, maecho_update, maecho_v_update, maecho_gram_left,
+          maecho_update_left, maecho_v_update_factored)
+
+
+def test_factored_aggregate_launches_left_kernels(card):
+    """A factored kernel aggregate runs B2/B5/B8 on the card, τ times
+    each for its one kernel leaf, and no other kernel."""
     N, out_d, in_d, k = 3, 160, 200, 30
     clients = [{"W": torch.randn(out_d, in_d, device="cuda", generator=card)}
                for _ in range(N)]
@@ -133,14 +151,67 @@ def test_factored_aggregate_runs_other_kinds_raise(card):
     projs = [{"W": {"U": u.contiguous(), "s": torch.ones(k, device="cuda")}}
              for u in U]
     cfg = MAEchoConfig(tau=2, eta=0.5, mu=20.0)
-    before = (maecho_gram_left.launches, maecho_update_left.launches,
-              maecho_v_update_factored.launches)
-    got = maecho_aggregate(clients, projs, cfg, backend="kernel")
-    want = maecho_aggregate(clients, projs, cfg, backend="oracle")
-    assert (maecho_gram_left.launches, maecho_update_left.launches,
-            maecho_v_update_factored.launches) == tuple(b + 2 for b in before)
-    torch.testing.assert_close(got["W"], want["W"], atol=1e-3, rtol=0)
-    diag = [{"W": torch.rand(in_d, device="cuda", generator=card)} for _ in range(N)]
-    for p in (None, diag):
-        with pytest.raises(NotImplementedError, match="B3/B6/B9"):
-            maecho_aggregate(clients, p, cfg, backend="kernel")
+    launches = _aggregate_launches(clients, projs, cfg, OTHERS + DIAG)
+    assert launches == [0, 0, 0, 2, 2, 2, 0, 0, 0]
+
+
+@pytest.mark.parametrize("norm", (False, True))
+def test_scalar_and_diag_aggregates_launch_diag_kernels(card, norm):
+    """The default scalar projectors (``projections=None``, broadcast to
+    diagonals) and diagonal projectors run B3/B6/B9 on the card, τ times
+    each for the one kernel leaf, and no other kernel; the 1-D bias
+    runs the oracle."""
+    N, out_d, in_d = 3, 160, 200
+    clients = [{"W": torch.randn(out_d, in_d, device="cuda", generator=card),
+                "b": torch.randn(out_d, device="cuda", generator=card)}
+               for _ in range(N)]
+    diag = [{"W": torch.rand(in_d, device="cuda", generator=card),
+             "b": torch.ones((), device="cuda")} for _ in range(N)]
+    cfg = MAEchoConfig(tau=3, eta=0.5, mu=20.0, norm=norm)
+    for projs in (None, diag):
+        launches = _aggregate_launches(clients, projs, cfg, DIAG + OTHERS)
+        assert launches == [3, 3, 3] + [0] * 6
+
+
+# (out, in, N): the MLP's W0/W1, ragged out/in with one client, a
+# multi-tile ragged leaf, and the shared-memory cap of 54 clients
+@pytest.mark.parametrize("shape", ((400, 784, 4), (200, 400, 4), (33, 65, 1),
+                                   (1000, 1100, 8), (64, 96, 54)))
+def test_diag_kernels_match_plain(card, shape):
+    out_d, in_d, N = shape
+    W = torch.randn(out_d, in_d, device="cuda", generator=card)
+    V = W + 0.1 * torch.randn(N, out_d, in_d, device="cuda", generator=card)
+    p = torch.rand(N, in_d, device="cuda", generator=card)
+    a = torch.softmax(torch.randn(N, device="cuda", generator=card), 0)
+    G, Gr = maecho_gram_diag(W, V, p), ref.maecho_gram_diag_ref(W, V, p)
+    assert (G - Gr).abs().max() <= 1e-5 * Gr.abs().max()
+    assert torch.equal(G, maecho_gram_diag(W, V, p))     # fixed-order reduction
+    Wn = maecho_update_diag(W, V, p, a, 0.5)
+    torch.testing.assert_close(Wn, ref.maecho_update_diag_ref(W, V, p, a, 0.5),
+                               atol=1e-4, rtol=0)
+    for norm in (False, True):
+        torch.testing.assert_close(maecho_v_update_diag(Wn, V, p, 0.9, norm),
+                                   ref.maecho_v_update_diag_ref(Wn, V, p, 0.9, norm),
+                                   atol=1e-4, rtol=0)
+
+
+def test_diag_wrappers_reject_bad_operands(card):
+    W = torch.zeros(8, 8, device="cuda")
+    V = torch.zeros(2, 8, 8, device="cuda")
+    p = torch.zeros(2, 8, device="cuda")
+    a = torch.ones(2, device="cuda")
+    with pytest.raises(ValueError, match="float32"):
+        maecho_gram_diag(W, V, p.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        maecho_update_diag(W, V, torch.zeros(8, 2, device="cuda").T, a)
+    with pytest.raises(ValueError, match="shapes"):
+        maecho_v_update_diag(W, V, p[:, :4].contiguous(), 0.5)
+    with pytest.raises(ValueError, match="shapes"):
+        maecho_update_diag(W, V, p, a[:1].contiguous())
+    with pytest.raises(ValueError, match="clients"):
+        maecho_gram_diag(W, torch.zeros(55, 8, 8, device="cuda"),
+                         torch.zeros(55, 8, device="cuda"))
+    for fn, args in ((maecho_update_diag, (a[:0],)), (maecho_v_update_diag, (0.5,))):
+        with pytest.raises(ValueError, match="clients"):
+            fn(W, torch.zeros(0, 8, 8, device="cuda"), torch.zeros(0, 8, device="cuda"),
+               *args)
