@@ -51,6 +51,28 @@ Phases (any failure exits nonzero; nothing is caught):
    oracle) and no other kernel, and the τ = 5 kernel and oracle
    aggregates must agree to 1e-3.  The clients', FedAvg's and
    MA-Echo's accuracies are printed, not checked.
+6. The stacked kernels (one launch for every layer of a scan-stacked
+   leaf) against their plain versions: B10 (Gram), B13 (Eq. 7), B16
+   (Eq. 11) with dense projectors and B12/B15/B18 with diagonal ones, on
+   a ragged leaf (L = 3, 200 x 300, N = 5; B16/B18 with the row-norm off
+   and on) and at Qwen2-0.5B's full-width leaves (L = 24, N = 2): wq
+   (896 x 896) and w_gate (4864 x 896 in the kernel layout) for the dense
+   kernels, wo (896 x 896) and w_down (896 x 4864) for the diagonal ones,
+   each timed with its plain version from CUDA-graph replays (fewer
+   calls per graph where one call takes milliseconds).
+7. The cross-silo LLM path (``examples/llm_finetune_aggregate_torch.py``
+   at full width): Qwen2-0.5B (arXiv:2407.10671; 24 layers, d_model 896,
+   vocab 151 936, random weights from a seeded generator,
+   ``attn_backend="oracle"``), two silos fine-tuned with AdamW 1e-3 for
+   60 steps of 8 x 64 tokens on the token domains 101 and 202, their
+   projectors from two probe batches each, and ``aggregate_llm(...,
+   backend="kernel")`` at τ = 15, timed, with its peak device memory.
+   B10/B13/B16 must launch 5·τ times (wq, wk, wv, w_gate, w_up),
+   B12/B15/B18 2·τ (wo, w_down on the scalar rule), B3/B6/B9 τ (the
+   embedding's token-support diagonal) and no other kernel; the τ = 5
+   kernel and oracle aggregates must agree to 1e-3 on every leaf, every
+   output leaf must be finite, and the perplexities of both silos,
+   FedAvg and MA-Echo on both domains (printed) must be finite.
 
 It prints each phase's time, the QP's and the kernels' time inside a
 kernel aggregate of each path (CUDA events around each call), a
@@ -59,6 +81,7 @@ as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 import json
+import math
 import pathlib
 import subprocess
 import sys
@@ -80,7 +103,12 @@ MARGIN = 0.05           # accuracy margin pinned by tests/test_paper_fidelity.py
 DENSE = ("maecho_gram", "maecho_update", "maecho_v_update")                 # B1 B4 B7
 FACTORED = ("maecho_gram_left", "maecho_update_left", "maecho_v_update_factored")  # B2 B5 B8
 DIAG = ("maecho_gram_diag", "maecho_update_diag", "maecho_v_update_diag")  # B3 B6 B9
-KERNELS = DENSE + FACTORED + DIAG
+STACKED = ("maecho_gram_stacked", "maecho_update_stacked",
+           "maecho_v_update_stacked")                                      # B10 B13 B16
+STACKED_DIAG = ("maecho_gram_diag_stacked", "maecho_update_diag_stacked",
+                "maecho_v_update_diag_stacked")                            # B12 B15 B18
+KERNELS = DENSE + FACTORED + DIAG + STACKED + STACKED_DIAG
+LLM_TAU = 15            # the example's MAEchoConfig(tau=15, eta=0.5, mu=20)
 REPLACES = {"maecho_gram": "src/repro/kernels/maecho_gram.py:131",
             "maecho_update": "src/repro/kernels/maecho_update.py:76",
             "maecho_v_update": "src/repro/kernels/maecho_v_update.py:107",
@@ -89,7 +117,13 @@ REPLACES = {"maecho_gram": "src/repro/kernels/maecho_gram.py:131",
             "maecho_v_update_factored": "src/repro/kernels/maecho_v_update.py:146",
             "maecho_gram_diag": "src/repro/kernels/maecho_gram.py:396",
             "maecho_update_diag": "src/repro/kernels/maecho_update.py:293",
-            "maecho_v_update_diag": "src/repro/kernels/maecho_v_update.py:315"}
+            "maecho_v_update_diag": "src/repro/kernels/maecho_v_update.py:315",
+            "maecho_gram_stacked": "src/repro/kernels/maecho_gram.py:299",
+            "maecho_update_stacked": "src/repro/kernels/maecho_update.py:177",
+            "maecho_v_update_stacked": "src/repro/kernels/maecho_v_update.py:186",
+            "maecho_gram_diag_stacked": "src/repro/kernels/maecho_gram.py:368",
+            "maecho_update_diag_stacked": "src/repro/kernels/maecho_update.py:252",
+            "maecho_v_update_diag_stacked": "src/repro/kernels/maecho_v_update.py:271"}
 
 
 def fail(msg: str) -> None:
@@ -127,17 +161,17 @@ def graph_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def time_cases(torch, label: str, cases: dict, timings: dict) -> None:
+def time_cases(torch, label: str, cases: dict, timings: dict, reps: int = 50) -> None:
     """Time each ``name: (kernel fn, plain fn, flops, bytes)`` of one
     leaf and record ``timings[(name, label)] = (ms, plain ms, bound ms,
-    bound by)``, device times from CUDA graphs."""
+    bound by)``, device times from CUDA graphs of ``reps`` calls."""
     for name, (k_fn, p_fn, flops, nbytes) in cases.items():
-        ms, plain = graph_ms(torch, k_fn, 50), graph_ms(torch, p_fn, 50)
+        ms, plain = graph_ms(torch, k_fn, reps), graph_ms(torch, p_fn, reps)
         b, by = bound_ms(flops, nbytes)
         timings[(name, label)] = (ms, plain, b, by)
-        print(f"[kernels] {label} {name}: {ms:.4f} ms, plain {plain:.4f} ms, "
-              f"bound {b:.4f} ms ({by}: {flops / 1e9:.3f} GFLOP, "
-              f"{nbytes / 1e6:.2f} MB)")
+        print(f"[kernels] {label} {name}: {ms:.4f} ms, plain {plain:.4f} ms "
+              f"({reps} calls per graph), bound {b:.4f} ms ({by}: "
+              f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB)")
 
 
 def bound_ms(flops: float, nbytes: float) -> tuple:
@@ -364,6 +398,199 @@ def phase_diag_kernels(torch, kern, ref):
         }
         time_cases(torch, label, cases, timings)
     return err, timings
+
+
+def phase_stacked_kernels(torch, kern, ref):
+    """B10/B13/B16 and B12/B15/B18 vs plain on the card; returns
+    (errors, timings) with timings keyed (name, leaf label)."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    frac, eta = 20.0 / 21.0, 0.5
+
+    def inputs(L, out_d, in_d, N):
+        W = torch.randn(L, out_d, in_d, device="cuda", generator=gen) * 0.1
+        V = W + torch.randn(N, L, out_d, in_d, device="cuda", generator=gen) * 0.05
+        U = torch.linalg.qr(torch.randn(N, L, in_d, in_d // 2, device="cuda",
+                                        generator=gen))[0]
+        P = (U @ U.transpose(-1, -2)).contiguous()
+        p = torch.rand(N, L, in_d, device="cuda", generator=gen)
+        alpha = torch.softmax(torch.randn(L, N, device="cuda", generator=gen), -1)
+        return W, V, P, p, alpha.contiguous()
+
+    plain = {n: getattr(ref, n + "_ref") for n in STACKED + STACKED_DIAG}
+    err = {name: 0.0 for name in STACKED + STACKED_DIAG}
+    for label, L, out_d, in_d, N in (("ragged", 3, 200, 300, 5), ("wq", 24, 896, 896, 2),
+                                     ("w_gate", 24, 4864, 896, 2)):
+        W, V, P, p, alpha = inputs(L, out_d, in_d, N)
+        tag = f"{label} (L={L}, {out_d}x{in_d}, N={N})"
+        for (g, u, v), proj in ((STACKED, P), (STACKED_DIAG, p)):
+            G, Gr = getattr(kern, g)(W, V, proj), plain[g](W, V, proj)
+            e = (G - Gr).abs().max().item()
+            tol = GRAM_RTOL * Gr.abs().max().item()
+            print(f"[kernels] {tag} {g} max_abs_err {e:.3e} tol {tol:.3e}")
+            check(e <= tol, f"{g} disagrees at {tag}")
+            check(torch.equal(G, getattr(kern, g)(W, V, proj)),
+                  f"{g} is not reproducible at {tag}")
+            err[g] = max(err[g], e)
+            Wn = getattr(kern, u)(W, V, proj, alpha, eta)
+            e = (Wn - plain[u](W, V, proj, alpha, eta)).abs().max().item()
+            print(f"[kernels] {tag} {u} max_abs_err {e:.3e} tol {APPLY_ATOL:.0e}")
+            check(e <= APPLY_ATOL, f"{u} disagrees at {tag}")
+            err[u] = max(err[u], e)
+            for norm in ((False, True) if label == "ragged" else (False,)):
+                Vn = getattr(kern, v)(Wn, V, proj, frac, norm)
+                e = (Vn - plain[v](Wn, V, proj, frac, norm)).abs().max().item()
+                print(f"[kernels] {tag} {v} norm={norm} max_abs_err {e:.3e} "
+                      f"tol {APPLY_ATOL:.0e}")
+                check(e <= APPLY_ATOL, f"{v} (norm={norm}) disagrees at {tag}")
+                check((Vn - V).abs().max().item() > 0, f"{v} left V unchanged")
+                err[v] = max(err[v], e)
+        del W, V, P, p
+    torch.cuda.synchronize()
+
+    # Bounds as for B1/B4/B7 and B3/B6/B9, times L: each input read once,
+    # each output written once.  Dense kernels at wq and w_gate, diagonal
+    # ones at wo and w_down (the leaves of the main path that run them).
+    timings = {}
+    for label, L, out_d, in_d, N, names in (
+            ("wq", 24, 896, 896, 2, STACKED), ("w_gate", 24, 4864, 896, 2, STACKED),
+            ("wo", 24, 896, 896, 2, STACKED_DIAG), ("w_down", 24, 896, 4864, 2,
+                                                    STACKED_DIAG)):
+        W, V, P, p, alpha = inputs(L, out_d, in_d, N)
+        proj = P if names is STACKED else p
+        g, u, v = names
+        Wn = getattr(kern, u)(W, V, proj, alpha, eta)
+        OI, II, NI = L * out_d * in_d, L * in_d * in_d, L * N * in_d
+        gemm = 2.0 * N * OI * in_d
+        if names is STACKED:
+            costs = {g: (gemm + N * OI + N * (N + 1) * OI,
+                         4.0 * (OI + N * OI + N * II + L * N * N)),
+                     u: (gemm + 3.0 * N * OI + 2.0 * OI,
+                         4.0 * (2 * OI + N * OI + N * II + L * N)),
+                     v: (gemm + 4.0 * N * OI, 4.0 * (OI + 2 * N * OI + N * II))}
+        else:
+            costs = {g: (2.0 * N * OI + N * (N + 1) * OI,
+                         4.0 * (OI + N * OI + NI + L * N * N)),
+                     u: (4.0 * N * OI + 2.0 * OI, 4.0 * (2 * OI + N * OI + NI + L * N)),
+                     v: (5.0 * N * OI, 4.0 * (OI + 2 * N * OI + NI))}
+        fns = {g: (lambda: getattr(kern, g)(W, V, proj), lambda: plain[g](W, V, proj)),
+               u: (lambda: getattr(kern, u)(W, V, proj, alpha, eta),
+                   lambda: plain[u](W, V, proj, alpha, eta)),
+               v: (lambda: getattr(kern, v)(Wn, V, proj, frac),
+                   lambda: plain[v](Wn, V, proj, frac))}
+        reps = 3 if names is STACKED else 10     # B10 at w_gate: ~0.1 s a call
+        time_cases(torch, label, {n: fns[n] + costs[n] for n in names}, timings, reps)
+        del W, V, P, p, Wn
+    return err, timings
+
+
+def tree_max_diff(a, b) -> float:
+    from repro_torch.utils import trees
+
+    return max((x - y).abs().max().item() for (_, x), (_, y)
+               in zip(trees.tree_paths(a), trees.tree_paths(b), strict=True))
+
+
+def phase_llm_path(torch, kern):
+    """The cross-silo LLM example at full width: fine-tune, probe,
+    aggregate (timed, launches counted), kernel-vs-oracle check at
+    TAU_CHECK, perplexities."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.aggregators import fedavg
+    from repro_torch.core.maecho import MAEchoConfig
+    from repro_torch.data.synthetic import lm_token_batches
+    from repro_torch.fl.llm_adapter import aggregate_llm, build_projections
+    from repro_torch.models.zoo import get_model
+    from repro_torch.optim.optimizers import adamw
+    from repro_torch.utils import trees
+
+    cfg = get_config("qwen2-0.5b").replace(attn_backend="oracle")
+    model = get_model(cfg)
+
+    def on_card(b):
+        return {k: torch.as_tensor(v, device="cuda") for k, v in b.items()}
+
+    t0 = time.perf_counter()
+    base = model.init_params(0)
+    n_params = sum(x.numel() for _, x in trees.tree_paths(base))
+    print(f"[llm] {cfg.name}: {n_params} parameters, layers {cfg.n_layers}, d_model "
+          f"{cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads}x{cfg.hd()}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab}, compute {cfg.compute_dtype}, microbatches "
+          f"{cfg.microbatches}, remat {cfg.remat}, attn_backend {cfg.attn_backend}")
+    r = {"t_train": 0.0}
+    silos, projs, t_proj = [], [], 0.0
+    for i, dom in enumerate((101, 202)):
+        opt = adamw(1e-3)
+        params, state = base, opt.init(base)
+        step = model.make_train_step(opt)
+        losses = []
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for t, b in enumerate(lm_token_batches(cfg.vocab, 8, 64, 60, seed=dom)):
+            params, state, loss = step(params, state, on_card(b), t)
+            losses.append(loss)
+        losses = [float(x) for x in losses]
+        r["t_train"] += time.perf_counter() - t1
+        print(f"[llm] silo {i} (domain {dom}): AdamW 1e-3, 60 steps of 8x64 tokens, "
+              f"loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+        check(all(math.isfinite(x) for x in losses),
+              f"silo {i} fine-tune gave a non-finite loss")
+        del state
+        t1 = time.perf_counter()
+        projs.append(build_projections(cfg, params, list(lm_token_batches(
+            cfg.vocab, 8, 64, 2, seed=dom))))
+        torch.cuda.synchronize()
+        t_proj += time.perf_counter() - t1
+        silos.append(params)
+    r["t_proj"], r["t_setup"] = t_proj, time.perf_counter() - t0
+    shapes = {p: tuple(x.shape) for p, x in trees.tree_paths(projs[0])}
+    print(f"[llm] projector shapes {shapes}")
+    check(shapes["layers.wq"] == (24, 896, 896) and shapes["layers.w_gate"] == (24, 896, 896)
+          and shapes["layers.wo"] == (24,) and shapes["embed"] == (151936,),
+          f"LLM projector shapes {shapes}")
+
+    def run(tau, backend):
+        return aggregate_llm(cfg, silos, projs, MAEchoConfig(tau=tau, eta=0.5, mu=20.0),
+                             backend=backend)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    r["before_gb"] = torch.cuda.memory_allocated() / 1e9
+    (agg, r["t_agg"], r["spans"]), r["launches"] = count_launches(
+        torch, kern, lambda: timed_calls(torch, lambda: run(LLM_TAU, "kernel")))
+    r["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    check(all(bool(torch.isfinite(x).all()) for _, x in trees.tree_paths(agg)),
+          "the LLM aggregate has non-finite values")
+    t1 = time.perf_counter()
+    r["diff"] = tree_max_diff(run(TAU_CHECK, "kernel"), run(TAU_CHECK, "oracle"))
+    torch.cuda.synchronize()
+    r["t_check"] = time.perf_counter() - t1
+
+    t1 = time.perf_counter()
+    r["ppl"] = {}
+    with torch.no_grad():
+        for name, p in (("silo0", silos[0]), ("silo1", silos[1]),
+                        ("fedavg", fedavg(silos)), ("maecho", agg)):
+            r["ppl"][name] = [math.exp(sum(float(model.loss_fn(p, on_card(b))) for b in
+                                           lm_token_batches(cfg.vocab, 8, 64, 5, seed=d))
+                                       / 5) for d in (101, 202)]
+    r["t_ppl"] = time.perf_counter() - t1
+    return r
+
+
+def check_llm_path(r: dict) -> None:
+    """The LLM path's launch contract: the dense stacked kernels on five
+    leaves, the diagonal stacked ones on two, the diagonal ones on the
+    embedding, each once per leaf and outer iteration; no other kernel."""
+    launches = r["launches"]
+    print(f"[launches] llm path: {launches}")
+    want = {**{n: 5 * LLM_TAU for n in STACKED}, **{n: 2 * LLM_TAU for n in STACKED_DIAG},
+            **{n: LLM_TAU for n in DIAG}}
+    for name in KERNELS:
+        check(launches[name] == want.get(name, 0), f"{name} ran {launches[name]} times "
+              f"on the llm path, expected {want.get(name, 0)}")
+    print(f"[check] llm: kernel-vs-oracle max |dW| over all leaves at tau={TAU_CHECK} "
+          f"{r['diff']:.3e} tol {AGG_ATOL:.0e}")
+    check(r["diff"] <= AGG_ATOL, "llm kernel aggregate disagrees with the oracle aggregate")
 
 
 def count_launches(torch, kern, run):
@@ -631,7 +858,13 @@ def main() -> None:
         maecho_v_update_left=maecho_v_update.maecho_v_update_left,
         maecho_gram_diag=maecho_gram.maecho_gram_diag,
         maecho_update_diag=maecho_update.maecho_update_diag,
-        maecho_v_update_diag=maecho_v_update.maecho_v_update_diag)
+        maecho_v_update_diag=maecho_v_update.maecho_v_update_diag,
+        maecho_gram_stacked=maecho_gram.maecho_gram_stacked,
+        maecho_update_stacked=maecho_update.maecho_update_stacked,
+        maecho_v_update_stacked=maecho_v_update.maecho_v_update_stacked,
+        maecho_gram_diag_stacked=maecho_gram.maecho_gram_diag_stacked,
+        maecho_update_diag_stacked=maecho_update.maecho_update_diag_stacked,
+        maecho_v_update_diag_stacked=maecho_v_update.maecho_v_update_diag_stacked)
     kern.all = [getattr(kern, n) for n in KERNELS]
 
     smi = subprocess.run(
@@ -649,7 +882,7 @@ def main() -> None:
 
     t0 = time.perf_counter()
     err, timings = phase_kernels(torch, kern, ref)
-    for phase in (phase_factored_kernels, phase_diag_kernels):
+    for phase in (phase_factored_kernels, phase_diag_kernels, phase_stacked_kernels):
         e, t = phase(torch, kern, ref)
         err.update(e)
         timings.update(t)
@@ -708,10 +941,31 @@ def main() -> None:
           f"(not checked)")
     check_path("cnn", c, DENSE, TAU)
 
-    source = {**{n: r for n in DENSE}, **{n: f for n in FACTORED}, **{n: sc for n in DIAG}}
+    t0 = time.perf_counter()
+    lm = phase_llm_path(torch, kern)
+    print(f"[phase] llm path {time.perf_counter() - t0:.3f} s: init, fine-tune and "
+          f"projections {lm['t_setup']:.3f} s (fine-tune {lm['t_train']:.3f} s, "
+          f"projections {lm['t_proj']:.3f} s), aggregate (kernel, tau={LLM_TAU}, timed) "
+          f"{lm['t_agg']:.3f} s, kernel and oracle aggregates (tau={TAU_CHECK}) "
+          f"{lm['t_check']:.3f} s, perplexities {lm['t_ppl']:.3f} s")
+    report_split("the LLM kernel aggregate", lm["t_agg"], lm["spans"],
+                 STACKED + STACKED_DIAG + DIAG)
+    print(f"[memory] llm: device memory allocated before the kernel aggregate (base "
+          f"model, both silos, their projectors) {lm['before_gb']:.3f} GB, peak in it "
+          f"{lm['peak_gb']:.3f} GB")
+    print("[perplexity] llm (ppl@dom101, ppl@dom202; not checked beyond finite): "
+          + ", ".join(f"{k} {a:.3f} {b:.3f}" for k, (a, b) in lm["ppl"].items()))
+    check(all(math.isfinite(x) for v in lm["ppl"].values() for x in v),
+          "an LLM perplexity is not finite")
+    check_llm_path(lm)
+
+    source = {**{n: r for n in DENSE}, **{n: f for n in FACTORED}, **{n: sc for n in DIAG},
+              **{n: lm for n in STACKED + STACKED_DIAG}}
+    label = {**{n: f"W0k{RANK}" for n in FACTORED}, **{n: "w_gate" for n in STACKED},
+             **{n: "w_down" for n in STACKED_DIAG}}
     rows = []
     for name in KERNELS:
-        ms, plain, b, by = timings[(name, f"W0k{RANK}" if name in FACTORED else "W0")]
+        ms, plain, b, by = timings[(name, label.get(name, "W0"))]
         rows.append({"name": name, "route": "cuda",
                      "source": f"src/repro_torch/kernels/csrc/{name}.cu",
                      "replaces": REPLACES[name],

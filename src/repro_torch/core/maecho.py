@@ -24,20 +24,23 @@ Backends (:func:`maecho_aggregate`'s ``backend``):
     streaming pipeline (``kernels.ops``): on a CUDA tensor the
     hand-written kernels B1 (Gram), B4 (Eq. 7) and B7 (Eq. 11) for
     dense projectors, B2, B5 and B8 for factored ones, B3, B6 and B9
-    for scalar and diagonal ones.  Smaller leaves and 1-D biases run
-    the oracle.
+    for scalar and diagonal ones; on a leaf with leading stacked-layer
+    axes (``stack_levels``) their stacked twins B10/B13/B16 and
+    B12/B15/B18, one launch per leaf for all its layers.  Smaller
+    leaves and 1-D biases run the oracle, batched over layer axes.
   - ``"auto"``: the same routing without fallback warnings.
 
 Routing is compiled once by ``core.plan.compile_plan``; the τ-loop
 below is a plain Python loop over that plan.  With
 ``MAEchoConfig.qp_batched`` (default) each iteration stacks every
-leaf's (N, N) Gram and solves all QPs in one batched PGD; otherwise
-one PGD per leaf.  Nothing inside the loop reads a value back to the
-host.
+leaf's (and every scanned layer's) (N, N) Gram and solves all QPs in
+one batched PGD; otherwise one PGD per leaf.  Nothing inside the loop
+reads a value back to the host.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Optional
 
 import torch
@@ -73,65 +76,138 @@ class MAEchoConfig:
 # --------------------------------------------------------------------------
 # per-leaf algebra
 # --------------------------------------------------------------------------
-def _apply_P(delta, P, convention: str):
-    """Δᵢ·Pᵢ for every client at once: ``delta`` (N, …) and ``P`` the
-    stacked projector — (N,) scalars, (N, in) diagonals, (N, in, in)
-    dense or factored {"U": (N, in, k), "s": (N, k)}.  1-D per-client
-    leaves (biases) contract their only axis."""
+def _apply_P(delta, P, convention: str, nb: int = 1):
+    """Δᵢ·Pᵢ for every client at once.  ``delta`` carries ``nb`` leading
+    batch axes — the client axis, preceded on a stacked leaf by its
+    layer axis — and ``P`` the same ones before its kind axes: scalars
+    (…,), diagonals (…, in), dense (…, in, in) or factored
+    {"U": (…, in, k), "s": (…, k)}.  1-D per-client leaves (biases)
+    contract their only axis."""
+    vec = delta.dim() == nb + 1
     if isinstance(P, dict):
         U, s = P["U"], P["s"]
-        Ut = U.transpose(1, 2)
-        if delta.dim() == 2:
-            return ((((delta[:, None, :] @ U) * s[:, None, :]) @ Ut))[:, 0]
+        Ut = U.transpose(-1, -2)
+        if vec:
+            return (((delta.unsqueeze(-2) @ U) * s.unsqueeze(-2)) @ Ut).squeeze(-2)
         if convention == "oi":
-            return ((delta @ U) * s[:, None, :]) @ Ut     # (out,k)·(k)·(k,in)
-        return U @ (s[:, :, None] * (Ut @ delta))
-    if P.dim() == 1:                                    # scalar (bias rule)
-        return delta * P.reshape((-1,) + (1,) * (delta.dim() - 1))
-    if P.dim() == 2:                                    # diagonal on in-axis
-        if delta.dim() == 2:
+            return ((delta @ U) * s.unsqueeze(-2)) @ Ut   # (out,k)·(k)·(k,in)
+        return U @ (s.unsqueeze(-1) * (Ut @ delta))
+    kd = P.dim() - nb
+    if kd == 0:                                         # scalar (bias rule)
+        return delta * P.reshape(P.shape + (1,) * (delta.dim() - nb))
+    if kd == 1:                                         # diagonal on in-axis
+        if vec:
             return delta * P
-        return delta * (P[:, None, :] if convention == "oi" else P[:, :, None])
-    if delta.dim() == 2:                                # dense
-        return (delta[:, None, :] @ P)[:, 0]
+        return delta * (P.unsqueeze(-2) if convention == "oi" else P.unsqueeze(-1))
+    if vec:                                             # dense
+        return (delta.unsqueeze(-2) @ P).squeeze(-2)
     return delta @ P if convention == "oi" else P @ delta
 
 
-def _to_kernel_layout(W, V, P, convention: str):
+def _flatten_stack(W, V, P, levels: int):
+    """Collapse ``levels`` leading stacked-layer axes into one flat L
+    axis (one reshape).  Returns ``(Wf, Vf, Pf, lead)`` with Wf (L, …),
+    Vf (N, L, …), Pf stacked per kind, and ``lead`` the original
+    leading shape for un-flattening."""
+    lead = tuple(W.shape[:levels])
+    Wf = W.reshape((-1,) + tuple(W.shape[levels:]))
+
+    def flat(x):
+        return x.reshape(tuple(x.shape[:1]) + (-1,) + tuple(x.shape[1 + levels:]))
+
+    Pf = {k: flat(v) for k, v in P.items()} if isinstance(P, dict) else flat(P)
+    return Wf, flat(V), Pf, lead
+
+
+def _layer_major(x):
+    """(N, L, …) → a (L, N, …) view (factored dicts per entry)."""
+    if isinstance(x, dict):
+        return {k: v.transpose(0, 1) for k, v in x.items()}
+    return x.transpose(0, 1)
+
+
+def _to_kernel_layout(W, V, P, convention: str, levels: int = 0):
     """The streaming kernels are "oi"-native and need contiguous
-    operands: "io" leaves are transposed (and copied) around the call."""
+    operands: "io" leaves are transposed (and copied) around the call;
+    stacked leaves transpose their trailing two axes only.  A leaf whose
+    last kernel call returned its outputs as transposed views is already
+    contiguous in the kernel layout and is not copied again."""
     if convention != "io":
         return W, V, P
     Pk = (P.transpose(-1, -2).contiguous()
-          if not isinstance(P, dict) and P.dim() == 3 else P)
-    return W.T.contiguous(), V.transpose(1, 2).contiguous(), Pk
+          if not isinstance(P, dict) and P.dim() == 3 + levels else P)
+    return (W.transpose(-1, -2).contiguous(), V.transpose(-1, -2).contiguous(), Pk)
+
+
+def _oracle_gram(W, V, P, convention: str, levels: int):
+    """Plain Gram half: the residual R, batched over a stacked leaf's
+    (flattened) layer axis, and G = R·Rᵀ per layer.  Returns ``(G, R)``
+    with G (lead…, N, N) and R the reuse context ((L, N, …) if
+    stacked)."""
+    if levels == 0:
+        R = _apply_P(W[None] - V, P, convention)
+        Rf = R.reshape(R.shape[0], -1).float()
+        return Rf @ Rf.T, R
+    Wf, Vf, Pf, lead = _flatten_stack(W, V, P, levels)
+    R = _apply_P(Wf[:, None] - _layer_major(Vf), _layer_major(Pf), convention, nb=2)
+    Rf = R.reshape(R.shape[0], R.shape[1], -1).float()
+    return (Rf @ Rf.transpose(1, 2)).reshape(lead + tuple(Rf.shape[1:2]) * 2), R
+
+
+def _oracle_apply(W, V, P, R, alpha, convention: str, levels: int, *,
+                  eta: float, frac: float, norm: bool, eps: float):
+    """Plain apply half: Eq. 7 from the cached residual, then Eq. 11,
+    batched over a stacked leaf's (flattened) layer axis."""
+    if levels == 0:
+        D = -2.0 * torch.tensordot(alpha, R.float(), dims=([0], [0]))
+        W_new = (W.float() + eta * D).to(W.dtype)
+        return W_new, ref.maecho_v_update_ref(W_new, V, P, frac, norm, eps,
+                                              convention)
+    Wf, Vf, Pf, lead = _flatten_stack(W, V, P, levels)
+    af = alpha.reshape(-1, alpha.shape[-1]).float()
+    D = -2.0 * (af.reshape(af.shape + (1,) * (R.dim() - 2)) * R.float()).sum(1)
+    Wn = (Wf.float() + eta * D).to(W.dtype)
+    Vn = ref.maecho_v_update_ref(Wn[:, None], _layer_major(Vf), _layer_major(Pf),
+                                 frac, norm, eps, convention, nb=2)
+    Vn = Vn.transpose(0, 1)
+    return (Wn.reshape(lead + tuple(Wn.shape[1:])),
+            Vn.reshape(tuple(Vn.shape[:1]) + lead + tuple(Vn.shape[2:])))
 
 
 def _leaf_gram(W, V, P, lp: LeafPlan, convention: str):
     """Gram phase for one leaf on its compiled route: returns ``(G,
-    ctx)`` — the (N, N) Gram and the reuse payload for
-    :func:`_leaf_apply` (the oracle's residual, or the kernel
-    pipeline's context)."""
+    ctx)`` — the Gram, (lead…, N, N) on a stacked leaf, and the reuse
+    payload for :func:`_leaf_apply` (the oracle's residual, or the
+    kernel pipeline's context)."""
     if lp.route == "oracle":
-        R = _apply_P(W[None] - V, P, convention)
-        Rf = R.reshape(R.shape[0], -1).float()
-        return Rf @ Rf.T, R
-    return ops.maecho_streaming_gram(*_to_kernel_layout(W, V, P, convention))
+        return _oracle_gram(W, V, P, convention, lp.levels)
+    if lp.route == "kernel":
+        return ops.maecho_streaming_gram(*_to_kernel_layout(W, V, P, convention))
+    Wf, Vf, Pf, lead = _flatten_stack(W, V, P, lp.levels)
+    G, ctx = ops.maecho_streaming_gram_stacked(
+        *_to_kernel_layout(Wf, Vf, Pf, convention, levels=1))
+    return G.reshape(lead + tuple(G.shape[-2:])), (lead, ctx)
 
 
 def _leaf_apply(W, V, P, ctx, alpha, lp: LeafPlan, cfg: MAEchoConfig,
                 convention: str):
-    """Apply phase for one leaf: Eq. 7 then Eq. 11.  Returns (W', V')."""
-    frac = cfg.mu / (1.0 + cfg.mu)
+    """Apply phase for one leaf: Eq. 7 then Eq. 11.  ``alpha`` carries
+    a stacked leaf's layer axes before its trailing N.  Returns
+    (W', V')."""
+    kw = dict(eta=cfg.eta, frac=cfg.mu / (1.0 + cfg.mu), norm=cfg.norm,
+              eps=cfg.eps)
     if lp.route == "oracle":
-        D = -2.0 * torch.tensordot(alpha, ctx.float(), dims=([0], [0]))
-        W_new = (W.float() + cfg.eta * D).to(W.dtype)
-        return W_new, ref.maecho_v_update_ref(W_new, V, P, frac, cfg.norm,
-                                              cfg.eps, convention)
-    W_new, V_new = ops.maecho_streaming_apply(
-        alpha, ctx, eta=cfg.eta, frac=frac, norm=cfg.norm, eps=cfg.eps)
+        return _oracle_apply(W, V, P, ctx, alpha, convention, lp.levels, **kw)
+    if lp.route == "kernel":
+        W_new, V_new = ops.maecho_streaming_apply(alpha, ctx, **kw)
+    else:
+        lead, inner = ctx
+        W_new, V_new = ops.maecho_streaming_apply_stacked(
+            alpha.reshape(-1, alpha.shape[-1]), inner, **kw)
+        W_new = W_new.reshape(lead + tuple(W_new.shape[1:]))
+        V_new = V_new.reshape(tuple(V_new.shape[:1]) + lead + tuple(V_new.shape[2:]))
     if convention == "io":
-        return W_new.T, V_new.transpose(1, 2)
+        return W_new.transpose(-1, -2), V_new.transpose(-1, -2)
     return W_new, V_new
 
 
@@ -140,16 +216,22 @@ def _outer(W, V, P, plan, cfg: MAEchoConfig, convention: str, masks):
     if cfg.qp_batched:
         gc = [_leaf_gram(w, v, p, lp, convention)
               for w, v, p, lp in zip(W, V, P, plan.leaves)]
-        Gstack, n_valid = qp_mod.stack_grams([g for g, _ in gc])
+        grams = [g for g, _ in gc]
+        Gstack, n_valid = qp_mod.stack_grams(grams)
+        counts = [math.prod(g.shape[:-2]) for g in grams]
         if masks is None:
             alphas = qp_mod.solve_qp_batched(Gstack, cfg.C, cfg.qp_iters,
                                              n_valid)
         else:
+            # a leaf's mask holds for every one of its scanned layers
+            rows = [m.expand(c, m.shape[0]) for m, c in zip(masks, counts)]
             alphas = qp_mod.solve_qp_batched(Gstack, cfg.C, cfg.qp_iters,
-                                             mask=torch.stack(masks))
-        out = [_leaf_apply(w, v, p, ctx, alphas[l], lp, cfg, convention)
-               for l, (w, v, p, lp, (_, ctx))
-               in enumerate(zip(W, V, P, plan.leaves, gc))]
+                                             mask=torch.cat(rows, 0))
+        out, ofs = [], 0
+        for w, v, p, lp, (g, ctx), c in zip(W, V, P, plan.leaves, gc, counts):
+            a = alphas[ofs:ofs + c].reshape(tuple(g.shape[:-1]))
+            ofs += c
+            out.append(_leaf_apply(w, v, p, ctx, a, lp, cfg, convention))
     else:
         out = []
         for l, (w, v, p, lp) in enumerate(zip(W, V, P, plan.leaves)):
@@ -259,8 +341,11 @@ def maecho_aggregate(
     client_weights: list over clients of structurally identical pytrees.
     projections:    matching list of projector pytrees; ``None`` means
                     scalar full projectors.
-    stack_levels:   ``None`` or all-zero (a pytree or ``path -> int``);
-                    stacked leaves are ROADMAP item A7.
+    stack_levels:   per-leaf count of leading stacked-layer axes —
+                    ``None`` (all 0), a pytree of ints matching the
+                    weights, or a callable ``path -> int`` (the LLM
+                    scan-over-layers layout).  Projector leaves carry
+                    the same leading axes after their client axis.
     backend:        ``"oracle"`` | ``"kernel"`` | ``"auto"``.
     client_mask:    one (N,) boolean mask or a pytree of them: masked-out
                     clients get α = 0 and frozen anchors.
@@ -289,8 +374,7 @@ def maecho_aggregate(
     if stack_levels is None:
         levels_tree = trees.tree_map(lambda _: 0, W0)
     elif callable(stack_levels):
-        levels_tree = trees.tree_unflatten(
-            treedef, [stack_levels(p) for p, _ in trees.tree_paths(W0)])
+        levels_tree = trees.map_with_path(lambda path, _: stack_levels(path), W0)
     else:
         levels_tree = stack_levels
     V0 = trees.tree_map(lambda *xs: torch.stack(xs, 0), *client_weights)

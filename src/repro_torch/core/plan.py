@@ -10,13 +10,20 @@ that runs.  The rules match ``repro.core.plan`` route for route.
 
 Routes in this port:
 
-  ``oracle``   the plain PyTorch reference path.
+  ``oracle``   the plain PyTorch reference path (batched over a stacked
+               leaf's layer axes).
   ``kernel``   the fused streaming pipeline (2-D leaf, min dim ≥ 128):
                CUDA kernels B1/B4/B7 for dense projectors, B2/B5/B8 for
                factored ones, B3/B6/B9 for scalar and diagonal ones.
+  ``stacked``  the same pipeline for a leaf with leading scan-layer
+               axes, flattened into the kernel grid: B10/B13/B16 for
+               dense projectors, B12/B15/B18 for scalar and diagonal
+               ones — one launch each per leaf and outer iteration,
+               whatever the layer count.
 
-The ``sharded`` / ``sharded2d`` backends (ROADMAP A11) and stacked
-leaves (A7) raise ``NotImplementedError``.
+The ``sharded`` / ``sharded2d`` backends (ROADMAP A11) raise
+``NotImplementedError``, and so does a factored stacked leaf on the
+``stacked`` route (its kernels B11/B14/B17 are ROADMAP A7).
 """
 from __future__ import annotations
 
@@ -45,12 +52,11 @@ def validate_backend(backend: str) -> None:
 @dataclasses.dataclass(frozen=True)
 class LeafPlan:
     """Frozen per-leaf routing decision.  ``out_d`` / ``in_d`` are the
-    "oi"-native kernel-layout dims (already convention-swapped).
-    ``levels`` (stacked-layer axes) is always 0 until ROADMAP item A7;
-    it is kept so the per-leaf report matches the reference's."""
+    "oi"-native kernel-layout dims (already convention-swapped);
+    ``levels`` is the number of leading stacked-layer axes."""
     path: str
     levels: int
-    route: str                  # oracle | kernel
+    route: str                  # oracle | kernel | stacked
     kind: str                   # scalar | diag | full | factored | none
     out_d: int = 0
     in_d: int = 0
@@ -74,14 +80,15 @@ class AggPlan:
         return counts
 
 
-def kernel_eligible(W, P) -> bool:
-    """A 2-D weight with a (client-stacked) scalar / diagonal / dense /
-    factored projector."""
-    if len(W.shape) != 2:
+def kernel_eligible(W, P, levels: int = 0) -> bool:
+    """A 2-D weight (plus ``levels`` leading stacked-layer axes) with a
+    (client-stacked) scalar / diagonal / dense / factored projector
+    whose kind axes shift by the same ``levels``."""
+    if len(W.shape) != 2 + levels:
         return False
     if isinstance(P, dict):
-        return set(P) == {"U", "s"} and len(P["U"].shape) == 3
-    return len(P.shape) in (1, 2, 3)
+        return set(P) == {"U", "s"} and len(P["U"].shape) == 3 + levels
+    return len(P.shape) in (1 + levels, 2 + levels, 3 + levels)
 
 
 def kernel_dims(W, convention: str) -> tuple:
@@ -89,35 +96,45 @@ def kernel_dims(W, convention: str) -> tuple:
     return (out_d, in_d) if convention == "oi" else (in_d, out_d)
 
 
-def proj_kind(P) -> str:
-    """Kind of a *stacked* (leading client axis) projector leaf."""
+def proj_kind(P, levels: int = 0) -> str:
+    """Kind of a *stacked* (leading client axis) projector leaf with
+    ``levels`` leading layer axes."""
     if isinstance(P, dict):
         return "factored"
-    return {1: "scalar", 2: "diag"}.get(len(P.shape), "full")
+    return {1: "scalar", 2: "diag"}.get(len(P.shape) - levels, "full")
 
 
-def _plan_leaf(path: str, W, P, convention: str, backend: str) -> LeafPlan:
+def _plan_leaf(path: str, W, P, levels: int, convention: str,
+               backend: str) -> LeafPlan:
     from repro_torch.kernels import ops
 
-    eligible = kernel_eligible(W, P)
-    kind = proj_kind(P) if eligible else "none"
+    eligible = kernel_eligible(W, P, levels)
+    kind = proj_kind(P, levels) if eligible else "none"
     if not eligible or backend == "oracle":
         if not eligible and backend != "auto" and backend != "oracle" \
                 and len(W.shape) > 1:
             ops.fallback_warn(
-                f"leaf {path or '<leaf>'} (shape={tuple(W.shape)}) "
-                f"ineligible for backend={backend!r}: falling back to the "
-                f"plain oracle")
-        return LeafPlan(path, 0, "oracle", kind)
+                f"leaf {path or '<leaf>'} (shape={tuple(W.shape)}, "
+                f"levels={levels}) ineligible for backend={backend!r}: "
+                f"falling back to the plain oracle")
+        return LeafPlan(path, levels, "oracle", kind)
     out_d, in_d = kernel_dims(W, convention)
     if min(out_d, in_d) >= ops.DEFAULT_BLOCK:
-        return LeafPlan(path, 0, "kernel", kind, out_d, in_d)
+        if levels and kind == "factored":
+            raise NotImplementedError(
+                f"stacked leaf {path or '<leaf>'} has a factored projector: "
+                f"its kernels B11/B14/B17 (maecho_*_left_stacked, "
+                f"maecho_v_update_factored_stacked) are not ported yet "
+                f"(ROADMAP item A7)")
+        return LeafPlan(path, levels, "stacked" if levels else "kernel",
+                        kind, out_d, in_d)
     if backend != "auto":
         ops.fallback_warn(
-            f"leaf {path or '<leaf>'} (out={out_d}, in={in_d}) below one "
-            f"{ops.DEFAULT_BLOCK}-tile for backend={backend!r}: running "
-            f"the plain oracle instead of the streaming kernels")
-    return LeafPlan(path, 0, "oracle", kind, out_d, in_d)
+            f"{'stacked ' if levels else ''}leaf {path or '<leaf>'} "
+            f"(out={out_d}, in={in_d}{f', levels={levels}' if levels else ''})"
+            f" below one {ops.DEFAULT_BLOCK}-tile for backend={backend!r}: "
+            f"running the plain oracle instead of the streaming kernels")
+    return LeafPlan(path, levels, "oracle", kind, out_d, in_d)
 
 
 def _shape_key(p):
@@ -137,11 +154,11 @@ class _Shape:
 @lru_cache(maxsize=256)
 def _compile_cached(leaf_descs, convention, backend):
     leaves = []
-    for path, wshape, pkey in leaf_descs:
+    for path, wshape, pkey, levels in leaf_descs:
         P = ({"U": _Shape(pkey[1]), "s": _Shape(pkey[2])}
              if pkey[0] == "factored" else _Shape(pkey[1]))
-        leaves.append(_plan_leaf(path, _Shape(wshape), P, convention,
-                                 backend))
+        leaves.append(_plan_leaf(path, _Shape(wshape), P, levels,
+                                 convention, backend))
     return AggPlan(backend=backend, convention=convention,
                    leaves=tuple(leaves))
 
@@ -156,11 +173,7 @@ def compile_plan(W0: Pytree, P: Pytree, levels_tree: Pytree,
     leaves_w, treedef = trees.tree_flatten(W0)
     flatP = trees.flatten_up_to(treedef, P)
     flatL = trees.flatten_up_to(treedef, levels_tree)
-    if any(int(lv) > 0 for lv in flatL):
-        raise NotImplementedError(
-            "stacked leaves (stack_levels > 0) are not ported yet "
-            "(ROADMAP item A7)")
     paths = [p for p, _ in trees.tree_paths(W0)]
-    descs = tuple((path, tuple(w.shape), _shape_key(p))
-                  for path, w, p in zip(paths, leaves_w, flatP))
+    descs = tuple((path, tuple(w.shape), _shape_key(p), int(lv))
+                  for path, w, p, lv in zip(paths, leaves_w, flatP, flatL))
     return _compile_cached(descs, convention, backend)

@@ -47,6 +47,20 @@ def null_projector_from_features_continue(Q, X, alpha: float = 1e-3,
     return Q
 
 
+def null_projector_from_features(X, alpha: float = 1e-3, block: int = 128):
+    """Stream X (n, d) through block-RLS updates from Q₀ = I.  Returns
+    Q ≈ I − P."""
+    Q = null_projector_init(X.shape[1], X.dtype, X.device)
+    return null_projector_from_features_continue(Q, X, alpha, block)
+
+
+def projection_from_features(X, alpha: float = 1e-3, block: int = 128):
+    """P (row-space projector) via the streaming block form."""
+    d = X.shape[-1]
+    return (torch.eye(d, dtype=X.dtype, device=X.device)
+            - null_projector_from_features(X, alpha, block))
+
+
 def symmetrize(P):
     return 0.5 * (P + P.T)
 

@@ -6,7 +6,9 @@ the pixels with a dead-pixel mask — the low effective rank the paper's
 null-space projections rely on (paper §6).  ``CIFAR_LIKE`` (3072 pixels)
 comes out as (n, 32, 32, 3) NHWC images.  The draws are the same
 ``np.random.RandomState`` sequence as ``repro.data.synthetic.generate``,
-so both packages see bit-identical arrays.
+so both packages see bit-identical arrays; :func:`lm_token_batches`
+(the LLM fine-tune's token stream) likewise matches the reference's
+tokens bit for bit.
 """
 from __future__ import annotations
 
@@ -55,3 +57,25 @@ def generate(spec: DatasetSpec, domain: int = 0):
     tx, ty = make(spec.n_train, 0)
     vx, vy = make(spec.n_test, 1)
     return {"train_x": tx, "train_y": ty, "test_x": vx, "test_y": vy}
+
+
+# --------------------------------------------------------------------------
+# synthetic LM token stream (for the LLM-scale FL fine-tuning path)
+# --------------------------------------------------------------------------
+def lm_token_batches(vocab: int, batch: int, seq: int, n_batches: int,
+                     seed: int = 0, order: int = 2):
+    """Markov-ish synthetic token stream: next ~ hash(prev tokens), with
+    30 % uniform noise.  Yields ``{"tokens", "labels"}`` int32 numpy
+    arrays of shape (batch, seq)."""
+    rng = np.random.RandomState(seed)
+    mult = rng.randint(1, vocab, size=order)
+    for _ in range(n_batches):
+        toks = np.zeros((batch, seq + 1), np.int64)
+        toks[:, :order] = rng.randint(0, vocab, size=(batch, order))
+        noise = rng.randint(0, vocab, size=(batch, seq + 1))
+        coin = rng.rand(batch, seq + 1) < 0.3
+        for t in range(order, seq + 1):
+            det = (toks[:, t - order:t] * mult).sum(1) % vocab
+            toks[:, t] = np.where(coin[:, t], noise[:, t], det)
+        yield {"tokens": toks[:, :-1].astype(np.int32),
+               "labels": toks[:, 1:].astype(np.int32)}

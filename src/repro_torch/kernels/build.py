@@ -31,7 +31,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SOURCES = ("maecho_gram", "maecho_update", "maecho_v_update",
            "maecho_gram_left", "maecho_update_left", "maecho_v_update_factored",
-           "maecho_gram_diag", "maecho_update_diag", "maecho_v_update_diag")
+           "maecho_gram_diag", "maecho_update_diag", "maecho_v_update_diag",
+           "maecho_gram_stacked", "maecho_update_stacked", "maecho_v_update_stacked",
+           "maecho_gram_diag_stacked", "maecho_update_diag_stacked",
+           "maecho_v_update_diag_stacked")
 
 _libs: dict[str, ctypes.CDLL] = {}
 
@@ -146,3 +149,24 @@ def check_f32_cuda(name: str, **tensors) -> None:
         require(t.dtype == torch.float32,
                 f"{name}: {k} must be float32, got {t.dtype}")
         require(t.is_contiguous(), f"{name}: {k} must be contiguous")
+
+
+def stacked_dims(name: str, W, V, P, kind: str, alpha=None) -> tuple:
+    """Check a stacked leaf's shapes — W (L, out, in), V (N, L, out, in),
+    P (N, L, in, in) for ``kind="full"`` or p (N, L, in) for
+    ``"diag"``, and alpha (L, N) when given — and return
+    ``(N, L, out, in)``."""
+    require(V.dim() == 4, f"{name}: V must be (N, L, out, in), got {tuple(V.shape)}")
+    N, L, out_d, in_d = V.shape
+    pshape = (N, L, in_d, in_d) if kind == "full" else (N, L, in_d)
+    ok = (tuple(W.shape) == (L, out_d, in_d) and tuple(P.shape) == pshape
+          and (alpha is None or tuple(alpha.shape) == (L, N)))
+    want = "(L, out, in), (N, L, out, in), " + (
+        "(N, L, in, in)" if kind == "full" else "(N, L, in)")
+    got = f"W {tuple(W.shape)}, V {tuple(V.shape)}, P {tuple(P.shape)}"
+    if alpha is not None:
+        want += ", (L, N)"
+        got += f", alpha {tuple(alpha.shape)}"
+    require(ok, f"{name}: shapes {got} do not match {want}")
+    require(N >= 1 and L >= 1, f"{name}: N={N} clients and L={L} layers, need >= 1")
+    return N, L, out_d, in_d

@@ -25,65 +25,12 @@
 // at the paper MLP's W0 (400x784, N=4) 6.28 MB and 9 MFLOP, bound by
 // bytes (3.35 TB/s): 1.9 us, below one launch's latency.
 
-#include "maecho_tile.cuh"
-
-namespace {
-
-constexpr int kChunk = 128;      // elements staged per client per step
-constexpr int kMaxCtas = 264;    // two per SM of an H100
-
-inline int gram_diag_ctas(long long total) {
-  const long long chunks = (total + kChunk - 1) / kChunk;
-  return (int)(chunks < kMaxCtas ? chunks : kMaxCtas);
-}
-
-__global__ void __launch_bounds__(NT)
-gram_diag_partial_kernel(const float* __restrict__ W, const float* __restrict__ V,
-                         const float* __restrict__ p, float* __restrict__ partial,
-                         int N, int in_d, long long total) {
-  __shared__ float R[kMaxClients][kChunk];
-  __shared__ float acc[kMaxClients * kMaxClients];
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int NN = N * N;
-  for (int q = tid; q < NN; q += NT) acc[q] = 0.f;
-  __syncthreads();
-
-  // staging: thread t owns element t % kChunk of the chunk for clients
-  // t / kChunk, t / kChunk + NT / kChunk, ... (coalesced rows of V_i)
-  const int le = tid % kChunk, i0 = tid / kChunk;
-  const long long n_chunks = (total + kChunk - 1) / kChunk;
-  for (long long ch = blockIdx.x; ch < n_chunks; ch += gridDim.x) {
-    const long long e = ch * kChunk + le;
-    const bool live = e < total;
-    const float w = live ? W[e] : 0.f;
-    const int c = live ? (int)(e % in_d) : 0;
-    for (int i = i0; i < N; i += NT / kChunk)
-      R[i][le] = live ? (w - V[(size_t)i * total + e]) * p[(size_t)i * in_d + c] : 0.f;
-    __syncthreads();
-    for (int q = warp; q < NN; q += NT / 32) {
-      const int i = q / N, j = q % N;
-      if (j < i) continue;                    // warp-uniform
-      float s = 0.f;
-      for (int k = lane; k < kChunk; k += 32) s = fmaf(R[i][k], R[j][k], s);
-      for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-      if (lane == 0) acc[q] += s;
-    }
-    __syncthreads();
-  }
-
-  float* out = partial + (size_t)blockIdx.x * NN;
-  for (int q = tid; q < NN; q += NT) {
-    const int i = q / N, j = q % N;
-    out[q] = i <= j ? acc[q] : acc[j * N + i];
-  }
-}
-
-}  // namespace
+#include "maecho_diag.cuh"
 
 extern "C" {
 
 long long maecho_gram_diag_workspace_floats(int N, int out_d, int in_d) {
-  return (long long)gram_diag_ctas((long long)out_d * in_d) * N * N;
+  return gram_diag_workspace_floats(N, out_d, in_d, 1);
 }
 
 int maecho_gram_diag_max_clients() { return kMaxClients; }
@@ -91,21 +38,7 @@ int maecho_gram_diag_max_clients() { return kMaxClients; }
 int maecho_gram_diag_launch(const void* W, const void* V, const void* p,
                             void* workspace, void* G, int N, int out_d, int in_d,
                             void* stream) {
-  if (N < 1 || N > kMaxClients || out_d < 1 || in_d < 1)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long total = (long long)out_d * in_d;
-  const int ctas = gram_diag_ctas(total);
-  float* ws = static_cast<float*>(workspace);
-  gram_diag_partial_kernel<<<ctas, NT, 0, s>>>(
-      static_cast<const float*>(W), static_cast<const float*>(V),
-      static_cast<const float*>(p), ws, N, in_d, total);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int NN = N * N;
-  gram_reduce_kernel<<<(NN + 255) / 256, 256, 0, s>>>(ws, static_cast<float*>(G),
-                                                      ctas, NN);
-  return (int)cudaGetLastError();
+  return gram_diag_launch(W, V, p, workspace, G, N, 1, out_d, in_d, stream);
 }
 
 }  // extern "C"

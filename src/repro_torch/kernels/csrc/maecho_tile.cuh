@@ -1,7 +1,20 @@
 // Shared tile machinery of the MA-Echo kernels for Hopper (sm_90a):
-// B1/B2 (Eq. 6 Gram), B4/B5 (Eq. 7 update) and B7/B8 (Eq. 11 update).
-// The elementwise diagonal kernels B3/B6/B9 (maecho_*_diag.cu) use only
-// its constants and B3 its fixed-order gram_reduce_kernel.
+// B1/B2 (Eq. 6 Gram), B4/B5 (Eq. 7 update) and B7/B8 (Eq. 11 update),
+// and the stacked twins B10/B13/B16 of B1/B4/B7.  The elementwise
+// diagonal kernels (maecho_diag.cuh) use only its constants and the
+// fixed-order gram_reduce_kernel.
+//
+// Layer axis.  Every launch covers L scan-stacked layers at once
+// (L = 1 for an unstacked leaf): W (L, out, in), V (N, L, out, in),
+// P (N, L, in, in), alpha (L, N), G (L, N, N).  The grid's z axis
+// carries the layer (Gram, Eq. 7) or the (layer, client) pair
+// z = l*N + i (Eq. 11), and every offset is 64-bit.  A stacked operand
+// (StackedDenseOp) has kStacked = true and a layer(l) that shifts its
+// base pointers to layer l; the unstacked operands (DenseOp, LeftOp)
+// have kStacked = false, their kernels fold the layer arithmetic away
+// and read the operand straight from kernel-parameter space, so B1-B8
+// compile as they did before the layer axis existed (a shifted copy of
+// the operand in registers had cost them 4-28 % at the MLP's leaves).
 //
 // Each of them forms, for one client i and one 32x32 (out, in) tile, a
 // residual tile
@@ -78,6 +91,17 @@ __device__ __forceinline__ void residual_tile(const Op& op, int i, int o0, int c
   }
 }
 
+// residual_tile on layer l's operand: the parameter itself when unstacked.
+template <class Op>
+__device__ __forceinline__ void layer_residual_tile(const Op& op, int l, int i, int o0,
+                                                    int c0, int out_d, int in_d,
+                                                    Stage& st, float r[2][2]) {
+  if constexpr (Op::kStacked)
+    residual_tile(op.layer(l), i, o0, c0, out_d, in_d, st, r);
+  else
+    residual_tile(op, i, o0, c0, out_d, in_d, st, r);
+}
+
 // ---------------------------------------------------------------- Gram
 
 constexpr size_t gram_smem_bytes(int n) {
@@ -92,10 +116,11 @@ gram_partial_kernel(Op op, float* __restrict__ partial, int N, int out_d, int in
   Stage& st = *reinterpret_cast<Stage*>(smem + (size_t)N * T * T);
   const int o0 = blockIdx.y * T, c0 = blockIdx.x * T;
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int l = Op::kStacked ? blockIdx.z : 0;
 
   for (int i = 0; i < N; ++i) {
     float r[2][2];
-    residual_tile(op, i, o0, c0, out_d, in_d, st, r);
+    layer_residual_tile(op, l, i, o0, c0, out_d, in_d, st, r);
     float* Ri = rstore + (size_t)i * T * T;
     Ri[ty * T + tx] = r[0][0];
     Ri[ty * T + tx + 16] = r[0][1];
@@ -107,7 +132,8 @@ gram_partial_kernel(Op op, float* __restrict__ partial, int N, int out_d, int in
   // pair contraction: one warp per (i <= j) pair, lanes stride the tile,
   // a fixed butterfly reduction keeps the sum order deterministic
   const int warp = tid / 32, lane = tid % 32;
-  float* out = partial + (size_t)(blockIdx.y * gridDim.x + blockIdx.x) * N * N;
+  const size_t tile = ((size_t)l * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
+  float* out = partial + tile * N * N;
   for (int p = warp; p < N * N; p += NT / 32) {
     const int i = p / N, j = p % N;
     if (j < i) continue;                      // warp-uniform
@@ -123,38 +149,45 @@ gram_partial_kernel(Op op, float* __restrict__ partial, int N, int out_d, int in
   }
 }
 
-// G[e] = sum over tiles of partial[t][e], tiles in index order.
+// G[l][e] = sum over layer l's tiles of partial[l][t][e], tiles in index
+// order (partials are grouped by layer, n_tiles per layer; l = blockIdx.y).
 __global__ void gram_reduce_kernel(const float* __restrict__ partial,
                                    float* __restrict__ G, int n_tiles, int NN) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= NN) return;
+  const size_t l = blockIdx.y;
+  const float* base = partial + l * n_tiles * NN;
   float s = 0.f;
-  for (int t = 0; t < n_tiles; ++t) s += partial[(size_t)t * NN + e];
-  G[e] = s;
+  for (int t = 0; t < n_tiles; ++t) s += base[(size_t)t * NN + e];
+  G[l * NN + e] = s;
 }
 
-// Floats of workspace a Gram launch needs: one partial (N, N) per tile.
-inline long long gram_workspace_floats(int N, int out_d, int in_d) {
-  return (long long)tiles(out_d) * tiles(in_d) * N * N;
+inline dim3 reduce_grid(int NN, int L) { return dim3((NN + 255) / 256, L); }
+
+// Floats of workspace a Gram launch needs: one partial (N, N) per tile
+// and layer.
+inline long long gram_workspace_floats(int N, int out_d, int in_d, int L = 1) {
+  return (long long)L * tiles(out_d) * tiles(in_d) * N * N;
 }
 
 template <class Op>
 int gram_launch(const Op& op, void* workspace, void* G, int N, int out_d,
-                int in_d, void* stream) {
-  if (N < 1 || N > kMaxClients || out_d < 1 || in_d < 1 || op.depth < 1)
+                int in_d, void* stream, int L = 1) {
+  if (N < 1 || N > kMaxClients || out_d < 1 || in_d < 1 || op.depth < 1 ||
+      L < 1 || L > (Op::kStacked ? 65535 : 1))
     return (int)cudaErrorInvalidValue;
   const size_t smem = gram_smem_bytes(N);
   cudaError_t err = cudaFuncSetAttribute(
       gram_partial_kernel<Op>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(tiles(in_d), tiles(out_d));
+  const dim3 grid(tiles(in_d), tiles(out_d), L);
   gram_partial_kernel<Op><<<grid, NT, smem, s>>>(
       op, static_cast<float*>(workspace), N, out_d, in_d);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int NN = N * N;
-  gram_reduce_kernel<<<(NN + 255) / 256, 256, 0, s>>>(
+  gram_reduce_kernel<<<reduce_grid(NN, L), 256, 0, s>>>(
       static_cast<const float*>(workspace), static_cast<float*>(G),
       (int)(grid.x * grid.y), NN);
   return (int)cudaGetLastError();
@@ -162,7 +195,8 @@ int gram_launch(const Op& op, void* workspace, void* G, int N, int out_d,
 
 // --------------------------------------------------------------- Eq. 7
 
-// out = W + eta * sum_i (-2 alpha_i) R_i, one CTA per output tile.
+// out = W + eta * sum_i (-2 alpha_i) R_i, one CTA per output tile and
+// layer (blockIdx.z).
 template <class Op>
 __global__ void __launch_bounds__(NT)
 update_kernel(Op op, const float* __restrict__ W, const float* __restrict__ alpha,
@@ -170,12 +204,15 @@ update_kernel(Op op, const float* __restrict__ W, const float* __restrict__ alph
   __shared__ Stage st;
   const int o0 = blockIdx.y * T, c0 = blockIdx.x * T;
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int l = Op::kStacked ? blockIdx.z : 0;
+  const size_t base = (size_t)l * out_d * in_d;
+  const float* al = alpha + (size_t)l * N;
 
   float acc[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
   for (int i = 0; i < N; ++i) {
     float r[2][2];
-    residual_tile(op, i, o0, c0, out_d, in_d, st, r);
-    const float m = -2.0f * alpha[i];
+    layer_residual_tile(op, l, i, o0, c0, out_d, in_d, st, r);
+    const float m = -2.0f * al[i];
 #pragma unroll
     for (int a = 0; a < 2; ++a)
 #pragma unroll
@@ -188,7 +225,7 @@ update_kernel(Op op, const float* __restrict__ W, const float* __restrict__ alph
     for (int b = 0; b < 2; ++b) {
       const int o = o0 + ty + 16 * a, c = c0 + tx + 16 * b;
       if (o < out_d && c < in_d) {
-        const size_t idx = (size_t)o * in_d + c;
+        const size_t idx = base + (size_t)o * in_d + c;
         out[idx] = W[idx] + eta * acc[a][b];
       }
     }
@@ -197,9 +234,11 @@ update_kernel(Op op, const float* __restrict__ W, const float* __restrict__ alph
 
 template <class Op>
 int update_launch(const Op& op, const void* W, const void* alpha, void* out,
-                  int N, int out_d, int in_d, float eta, void* stream) {
-  if (N < 1 || out_d < 1 || in_d < 1 || op.depth < 1) return (int)cudaErrorInvalidValue;
-  const dim3 grid(tiles(in_d), tiles(out_d));
+                  int N, int out_d, int in_d, float eta, void* stream, int L = 1) {
+  if (N < 1 || out_d < 1 || in_d < 1 || op.depth < 1 || L < 1 ||
+      L > (Op::kStacked ? 65535 : 1))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid(tiles(in_d), tiles(out_d), L);
   update_kernel<Op><<<grid, NT, 0, static_cast<cudaStream_t>(stream)>>>(
       op, static_cast<const float*>(W), static_cast<const float*>(alpha),
       static_cast<float*>(out), N, out_d, in_d, eta);
@@ -208,25 +247,29 @@ int update_launch(const Op& op, const void* W, const void* alpha, void* out,
 
 // -------------------------------------------------------------- Eq. 11
 
-// u = (W' - V_i) - frac * R_i for one (client, tile); without norm the
-// launch stores V_i + u, with norm it stores u and the tile's per-row
-// sums of squares (summed in column order) to rowss (N, out, n_col_tiles).
+// u = (W' - V_i) - frac * R_i for one (layer, client, tile), z = l*N + i;
+// without norm the launch stores V_i + u, with norm it stores u and the
+// tile's per-row sums of squares (summed in column order) to rowss
+// (N, L, out, n_col_tiles).
 template <bool NORM, class Op>
 __global__ void __launch_bounds__(NT)
 v_update_kernel(Op op, const float* __restrict__ W, const float* __restrict__ V,
-                float* __restrict__ out, float* __restrict__ rowss, int out_d,
-                int in_d, float frac) {
+                float* __restrict__ out, float* __restrict__ rowss, int N, int L,
+                int out_d, int in_d, float frac) {
   __shared__ Stage st;
   __shared__ float Sq[T][T + 1];
-  const int i = blockIdx.z;
+  const int l = Op::kStacked ? blockIdx.z / N : 0;
+  const int i = Op::kStacked ? blockIdx.z % N : blockIdx.z;
   const int o0 = blockIdx.y * T, c0 = blockIdx.x * T;
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const size_t OI = (size_t)out_d * in_d;
-  const float* Vi = V + i * OI;
-  float* Oi = out + i * OI;
+  const size_t il = Op::kStacked ? (size_t)i * L + l : i;  // (client, layer) of V
+  const float* Vi = V + il * OI;
+  float* Oi = out + il * OI;
+  const float* Wl = W + (size_t)l * OI;
 
   float r[2][2];
-  residual_tile(op, i, o0, c0, out_d, in_d, st, r);
+  layer_residual_tile(op, l, i, o0, c0, out_d, in_d, st, r);
 
 #pragma unroll
   for (int a = 0; a < 2; ++a) {
@@ -238,7 +281,7 @@ v_update_kernel(Op op, const float* __restrict__ W, const float* __restrict__ V,
       if (o < out_d && c < in_d) {
         const size_t idx = (size_t)o * in_d + c;
         const float v = Vi[idx];
-        u = (W[idx] - v) - frac * r[a][b];
+        u = (Wl[idx] - v) - frac * r[a][b];
         Oi[idx] = NORM ? u : v + u;
       }
       if (NORM) Sq[lr][lc] = u * u;
@@ -249,12 +292,12 @@ v_update_kernel(Op op, const float* __restrict__ W, const float* __restrict__ V,
     if (tid < T && o0 + tid < out_d) {
       float s = 0.f;
       for (int c = 0; c < T; ++c) s += Sq[tid][c];
-      rowss[((size_t)i * out_d + o0 + tid) * gridDim.x + blockIdx.x] = s;
+      rowss[(il * out_d + o0 + tid) * gridDim.x + blockIdx.x] = s;
     }
   }
 }
 
-// One CTA per (client, row): sum the row's tile partials in tile order,
+// One CTA per (client, layer, row): sum the row's tile partials in tile order,
 // then V_i' = V_i + u / max(||u||, eps) over the row.
 __global__ void v_norm_kernel(const float* __restrict__ V, float* __restrict__ out,
                               const float* __restrict__ rowss, int in_d,
@@ -271,30 +314,35 @@ __global__ void v_norm_kernel(const float* __restrict__ V, float* __restrict__ o
 
 // Floats of workspace an Eq. 11 launch needs: per-row, per-column-tile
 // sums of squares when norm is on, none otherwise.
-inline long long v_update_workspace_floats(int N, int out_d, int in_d, int norm) {
-  return norm ? (long long)N * out_d * tiles(in_d) : 0;
+inline long long v_update_workspace_floats(int N, int out_d, int in_d, int norm,
+                                           int L = 1) {
+  return norm ? (long long)N * L * out_d * tiles(in_d) : 0;
 }
 
 template <class Op>
 int v_update_launch(const Op& op, const void* W, const void* V, void* out,
                     void* workspace, int N, int out_d, int in_d, float frac,
-                    int norm, float eps, void* stream) {
-  if (N < 1 || N > 65535 || out_d < 1 || in_d < 1 || op.depth < 1)
+                    int norm, float eps, void* stream, int L = 1) {
+  const long long rows = (long long)N * L * out_d;
+  if (N < 1 || L < 1 || L > (Op::kStacked ? 65535 : 1) || (long long)N * L > 65535 ||
+      out_d < 1 || in_d < 1 || op.depth < 1 || rows > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(tiles(in_d), tiles(out_d), N);
+  const dim3 grid(tiles(in_d), tiles(out_d), N * L);
   const float* w = static_cast<const float*>(W);
   const float* v = static_cast<const float*>(V);
   float* o = static_cast<float*>(out);
   float* ws = static_cast<float*>(workspace);
   if (!norm) {
-    v_update_kernel<false, Op><<<grid, NT, 0, s>>>(op, w, v, o, ws, out_d, in_d, frac);
+    v_update_kernel<false, Op><<<grid, NT, 0, s>>>(op, w, v, o, ws, N, L, out_d,
+                                                   in_d, frac);
     return (int)cudaGetLastError();
   }
-  v_update_kernel<true, Op><<<grid, NT, 0, s>>>(op, w, v, o, ws, out_d, in_d, frac);
+  v_update_kernel<true, Op><<<grid, NT, 0, s>>>(op, w, v, o, ws, N, L, out_d, in_d,
+                                                frac);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  v_norm_kernel<<<N * out_d, 256, 0, s>>>(v, o, ws, in_d, (int)grid.x, eps);
+  v_norm_kernel<<<(unsigned)rows, 256, 0, s>>>(v, o, ws, in_d, (int)grid.x, eps);
   return (int)cudaGetLastError();
 }
 
@@ -302,6 +350,7 @@ int v_update_launch(const Op& op, const void* W, const void* V, void* out,
 
 // Dense projector: L_i = W - V_i (out, in), Rt_i = P_i (in, in).
 struct DenseOp {
+  static constexpr bool kStacked = false;
   const float* W;
   const float* V;
   const float* P;
@@ -323,9 +372,44 @@ inline DenseOp dense_op(const void* W, const void* V, const void* P, int out_d,
                  static_cast<const float*>(P), in_d, (size_t)out_d * in_d, in_d};
 }
 
+// The dense projector of a stacked leaf: layer 0 of W (L, out, in),
+// V (N, L, out, in), P (N, L, in, in); layer(l) moves the bases to layer l.
+struct StackedDenseOp {
+  static constexpr bool kStacked = true;
+  const float* W;
+  const float* V;
+  const float* P;
+  int in_d;
+  size_t OI;                   // out*in: one layer of W
+  size_t vstride, pstride;     // client strides of V and P: L*out*in, L*in*in
+  int depth;                   // = in_d
+  __device__ __forceinline__ float left(int i, int o, int k) const {
+    const size_t idx = (size_t)o * in_d + k;
+    return W[idx] - V[i * vstride + idx];
+  }
+  __device__ __forceinline__ float right(int i, int k, int c) const {
+    return P[i * pstride + (size_t)k * in_d + c];
+  }
+  __device__ __forceinline__ StackedDenseOp layer(int l) const {
+    StackedDenseOp op = *this;
+    op.W += l * OI;
+    op.V += l * OI;
+    op.P += (size_t)l * in_d * in_d;
+    return op;
+  }
+};
+
+inline StackedDenseOp stacked_dense_op(const void* W, const void* V, const void* P,
+                                       int out_d, int in_d, int L) {
+  const size_t OI = (size_t)out_d * in_d, II = (size_t)in_d * in_d;
+  return StackedDenseOp{static_cast<const float*>(W), static_cast<const float*>(V),
+                        static_cast<const float*>(P), in_d, OI, L * OI, L * II, in_d};
+}
+
 // Factored projector P_i = U_i diag(s_i) U_i^T: L_i = A_i (out, rank), the
 // compressed residual, and Rt_i = U_i^T (rank, in).
 struct LeftOp {
+  static constexpr bool kStacked = false;
   const float* A;
   const float* UT;
   int out_d, in_d;

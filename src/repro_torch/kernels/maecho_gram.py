@@ -4,7 +4,11 @@ Pᵢ (Rᵢ = (W − Vᵢ)Pᵢ, ``csrc/maecho_gram.cu``, port of
 Pᵢ = Uᵢ·diag(sᵢ)·Uᵢᵀ (Rᵢ = Aᵢ @ UTᵢ, ``csrc/maecho_gram_left.cu``, port
 of ``maecho_gram_left``), plus the compressed residual A both factored
 passes start from; and B3 for diagonal Pᵢ = diag(pᵢ) (Rᵢ = (W − Vᵢ)·pᵢ,
-``csrc/maecho_gram_diag.cu``, port of ``maecho_gram_diag``).
+``csrc/maecho_gram_diag.cu``, port of ``maecho_gram_diag``); and the
+stacked twins of B1 and B3 for scan-stacked leaves, one launch for all
+layers: B10 (``csrc/maecho_gram_stacked.cu``, port of
+``maecho_gram_stacked``) and B12 (``csrc/maecho_gram_diag_stacked.cu``,
+port of ``maecho_gram_diag_stacked``).
 
 On a CUDA tensor a wrapper launches its kernel (or raises); on a CPU
 tensor it runs the plain version in ``ref``.
@@ -137,3 +141,70 @@ def maecho_gram_diag(W, V, p):
 
 
 maecho_gram_diag.launches = 0
+
+_STACKED_SIGS = {
+    "maecho_gram_stacked_workspace_floats": (ctypes.c_longlong, [ctypes.c_int] * 4),
+    "maecho_gram_stacked_max_clients": (ctypes.c_int, []),
+    "maecho_gram_stacked_launch": (ctypes.c_int, [ctypes.c_void_p] * 5
+                                   + [ctypes.c_int] * 4 + [ctypes.c_void_p]),
+}
+
+
+def _gram_stacked_launch(name: str, sigs: dict, W, V, P, kind: str):
+    """Launch B10 or B12 (``name``) on a checked stacked leaf and return
+    the (L, N, N) Grams."""
+    build.check_f32_cuda(name, W=W, V=V, P=P)
+    N, L, out_d, in_d = build.stacked_dims(name, W, V, P, kind)
+    lib = build.load(name, sigs)
+    cap = getattr(lib, f"{name}_max_clients")()
+    build.require(N <= cap, f"{name}: N={N} clients outside 1..{cap}")
+    build.require(L <= 65535, f"{name}: L={L} layers exceeds the grid's limit")
+    ws = torch.empty(getattr(lib, f"{name}_workspace_floats")(N, L, out_d, in_d),
+                     dtype=torch.float32, device=W.device)
+    G = torch.empty((L, N, N), dtype=torch.float32, device=W.device)
+    err = getattr(lib, f"{name}_launch")(build.ptr(W), build.ptr(V), build.ptr(P),
+                                         build.ptr(ws), build.ptr(G), N, L, out_d,
+                                         in_d, build.stream())
+    build.check(err, name)
+    return G
+
+
+def maecho_gram_stacked(W, V, P):
+    """B10, the wrapper of ``csrc/maecho_gram_stacked.cu`` (port of
+    ``repro/kernels/maecho_gram.py::maecho_gram_stacked``): the
+    (L, N, N) per-layer Grams of Rₗᵢ = (Wₗ − Vᵢₗ)Pᵢₗ from W (L, out, in),
+    V (N, L, out, in) and dense P (N, L, in, in) float32, one launch for
+    all L layers.  Any out/in; N up to 54."""
+    if W.device.type == "cpu":
+        return ref.maecho_gram_stacked_ref(W, V, P)
+    G = _gram_stacked_launch("maecho_gram_stacked", _STACKED_SIGS, W, V, P, "full")
+    maecho_gram_stacked.launches += 1
+    return G
+
+
+maecho_gram_stacked.launches = 0
+
+_DIAG_STACKED_SIGS = {
+    "maecho_gram_diag_stacked_workspace_floats": (ctypes.c_longlong,
+                                                  [ctypes.c_int] * 4),
+    "maecho_gram_diag_stacked_max_clients": (ctypes.c_int, []),
+    "maecho_gram_diag_stacked_launch": (ctypes.c_int, [ctypes.c_void_p] * 5
+                                        + [ctypes.c_int] * 4 + [ctypes.c_void_p]),
+}
+
+
+def maecho_gram_diag_stacked(W, V, p):
+    """B12, the wrapper of ``csrc/maecho_gram_diag_stacked.cu`` (port of
+    ``repro/kernels/maecho_gram.py::maecho_gram_diag_stacked``): the
+    (L, N, N) per-layer Grams of Rₗᵢ = (Wₗ − Vᵢₗ)·pᵢₗ from W (L, out, in),
+    V (N, L, out, in) and the diagonals p (N, L, in) float32, one launch
+    for all L layers.  Any out/in; N up to 54."""
+    if W.device.type == "cpu":
+        return ref.maecho_gram_diag_stacked_ref(W, V, p)
+    G = _gram_stacked_launch("maecho_gram_diag_stacked", _DIAG_STACKED_SIGS,
+                             W, V, p, "diag")
+    maecho_gram_diag_stacked.launches += 1
+    return G
+
+
+maecho_gram_diag_stacked.launches = 0

@@ -4,7 +4,11 @@
 Pᵢ (Rᵢ = Aᵢ @ UTᵢ, ``csrc/maecho_update_left.cu``, port of
 ``maecho_update_left``), and B6 for diagonal Pᵢ = diag(pᵢ)
 (Rᵢ = (W − Vᵢ)·pᵢ, ``csrc/maecho_update_diag.cu``, port of
-``maecho_update_diag``).
+``maecho_update_diag``); and their stacked twins for scan-stacked
+leaves, one launch for all layers: B13 (``csrc/maecho_update_stacked.cu``,
+port of ``maecho_update_stacked``) and B15
+(``csrc/maecho_update_diag_stacked.cu``, port of
+``maecho_update_diag_stacked``).
 
 On a CUDA tensor a wrapper launches its kernel (or raises); on a CPU
 tensor it runs the plain version in ``ref``.
@@ -120,3 +124,53 @@ def maecho_update_diag(W, V, p, alpha, eta: float = 1.0):
 
 
 maecho_update_diag.launches = 0
+
+_STACKED_ARGS = (ctypes.c_int, [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+                 + [ctypes.c_float, ctypes.c_void_p])
+
+
+def _update_stacked_launch(name: str, W, V, P, alpha, eta: float, kind: str):
+    """Launch B13 or B15 (``name``) on a checked stacked leaf and return
+    the (L, out, in) update."""
+    build.check_f32_cuda(name, W=W, V=V, P=P, alpha=alpha)
+    N, L, out_d, in_d = build.stacked_dims(name, W, V, P, kind, alpha)
+    build.require(L <= 65535, f"{name}: L={L} layers exceeds the grid's limit")
+    lib = build.load(name, {f"{name}_launch": _STACKED_ARGS})
+    out = torch.empty_like(W)
+    err = getattr(lib, f"{name}_launch")(build.ptr(W), build.ptr(V), build.ptr(P),
+                                         build.ptr(alpha), build.ptr(out), N, L,
+                                         out_d, in_d, float(eta), build.stream())
+    build.check(err, name)
+    return out
+
+
+def maecho_update_stacked(W, V, P, alpha, eta: float = 1.0):
+    """B13, the wrapper of ``csrc/maecho_update_stacked.cu`` (port of
+    ``repro/kernels/maecho_update.py::maecho_update_stacked``): Eq. 7
+    per layer, Wₗ' = Wₗ + η·(−Σᵢ 2αₗᵢ (Wₗ − Vᵢₗ)Pᵢₗ), for W (L, out, in),
+    V (N, L, out, in), P (N, L, in, in), alpha (L, N) float32, one launch
+    for all layers.  alpha stays on the device (no host sync)."""
+    if W.device.type == "cpu":
+        return ref.maecho_update_stacked_ref(W, V, P, alpha, eta)
+    out = _update_stacked_launch("maecho_update_stacked", W, V, P, alpha, eta, "full")
+    maecho_update_stacked.launches += 1
+    return out
+
+
+maecho_update_stacked.launches = 0
+
+
+def maecho_update_diag_stacked(W, V, p, alpha, eta: float = 1.0):
+    """B15, the wrapper of ``csrc/maecho_update_diag_stacked.cu`` (port of
+    ``repro/kernels/maecho_update.py::maecho_update_diag_stacked``):
+    Eq. 7 per layer, elementwise, for W (L, out, in), V (N, L, out, in),
+    p (N, L, in), alpha (L, N) float32, one launch for all layers."""
+    if W.device.type == "cpu":
+        return ref.maecho_update_diag_stacked_ref(W, V, p, alpha, eta)
+    out = _update_stacked_launch("maecho_update_diag_stacked", W, V, p, alpha, eta,
+                                 "diag")
+    maecho_update_diag_stacked.launches += 1
+    return out
+
+
+maecho_update_diag_stacked.launches = 0

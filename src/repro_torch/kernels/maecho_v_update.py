@@ -3,7 +3,12 @@ B7 for dense Pᵢ (``csrc/maecho_v_update.cu``, port of
 ``repro/kernels/maecho_v_update.py::maecho_v_update``) and B8 for
 factored Pᵢ (``csrc/maecho_v_update_factored.cu``, port of
 ``maecho_v_update_factored``), and B9 for diagonal Pᵢ = diag(pᵢ)
-(``csrc/maecho_v_update_diag.cu``, port of ``maecho_v_update_diag``).
+(``csrc/maecho_v_update_diag.cu``, port of ``maecho_v_update_diag``);
+and the stacked twins of B7 and B9 for scan-stacked leaves, one launch
+for all layers: B16 (``csrc/maecho_v_update_stacked.cu``, port of
+``maecho_v_update_stacked``) and B18
+(``csrc/maecho_v_update_diag_stacked.cu``, port of
+``maecho_v_update_diag_stacked``).
 
 On a CUDA tensor a wrapper launches its kernel (or raises); on a CPU
 tensor it runs the plain version in ``ref``.
@@ -167,3 +172,72 @@ def maecho_v_update_diag(W, V, p, frac: float, norm: bool = False,
 
 
 maecho_v_update_diag.launches = 0
+
+_STACKED_SIGS = {
+    "maecho_v_update_stacked_workspace_floats": (ctypes.c_longlong,
+                                                 [ctypes.c_int] * 5),
+    "maecho_v_update_stacked_launch": (ctypes.c_int, [ctypes.c_void_p] * 5
+                                       + [ctypes.c_int] * 4
+                                       + [ctypes.c_float, ctypes.c_int,
+                                          ctypes.c_float, ctypes.c_void_p]),
+}
+
+
+def maecho_v_update_stacked(W, V, P, frac: float, norm: bool = False,
+                            eps: float = 1e-12):
+    """B16, the wrapper of ``csrc/maecho_v_update_stacked.cu`` (port of
+    ``repro/kernels/maecho_v_update.py::maecho_v_update_stacked``):
+    Eq. 11 per layer, V' (N, L, out, in) from W (L, out, in) updated
+    global, V (N, L, out, in) and P (N, L, in, in) float32, one launch
+    for all layers; ``norm`` row-normalises each update over in."""
+    if W.device.type == "cpu":
+        return ref.maecho_v_update_stacked_ref(W, V, P, frac, norm, eps)
+    name = "maecho_v_update_stacked"
+    build.check_f32_cuda(name, W=W, V=V, P=P)
+    N, L, out_d, in_d = build.stacked_dims(name, W, V, P, "full")
+    build.require(N * L <= 65535, f"{name}: N*L={N * L} exceeds the grid's z limit")
+    lib = build.load(name, _STACKED_SIGS)
+    ws = torch.empty(lib.maecho_v_update_stacked_workspace_floats(
+        N, L, out_d, in_d, int(norm)), dtype=torch.float32, device=W.device)
+    out = torch.empty_like(V)
+    err = lib.maecho_v_update_stacked_launch(
+        build.ptr(W), build.ptr(V), build.ptr(P), build.ptr(out), build.ptr(ws),
+        N, L, out_d, in_d, float(frac), int(norm), float(eps), build.stream())
+    build.check(err, name)
+    maecho_v_update_stacked.launches += 1
+    return out
+
+
+maecho_v_update_stacked.launches = 0
+
+_DIAG_STACKED_SIGS = {
+    "maecho_v_update_diag_stacked_launch": (ctypes.c_int, [ctypes.c_void_p] * 4
+                                            + [ctypes.c_int] * 4
+                                            + [ctypes.c_float, ctypes.c_int,
+                                               ctypes.c_float, ctypes.c_void_p]),
+}
+
+
+def maecho_v_update_diag_stacked(W, V, p, frac: float, norm: bool = False,
+                                 eps: float = 1e-12):
+    """B18, the wrapper of ``csrc/maecho_v_update_diag_stacked.cu`` (port
+    of ``repro/kernels/maecho_v_update.py::maecho_v_update_diag_stacked``):
+    Eq. 11 per layer, elementwise, V' (N, L, out, in) from W (L, out, in)
+    updated global, V (N, L, out, in) and p (N, L, in) float32, one
+    launch for all layers."""
+    if W.device.type == "cpu":
+        return ref.maecho_v_update_diag_stacked_ref(W, V, p, frac, norm, eps)
+    name = "maecho_v_update_diag_stacked"
+    build.check_f32_cuda(name, W=W, V=V, p=p)
+    N, L, out_d, in_d = build.stacked_dims(name, W, V, p, "diag")
+    lib = build.load(name, _DIAG_STACKED_SIGS)
+    out = torch.empty_like(V)
+    err = lib.maecho_v_update_diag_stacked_launch(
+        build.ptr(W), build.ptr(V), build.ptr(p), build.ptr(out), N, L, out_d, in_d,
+        float(frac), int(norm), float(eps), build.stream())
+    build.check(err, name)
+    maecho_v_update_diag_stacked.launches += 1
+    return out
+
+
+maecho_v_update_diag_stacked.launches = 0

@@ -16,6 +16,15 @@ version in ``ref``.  Leaves below one 128-tile run the plain oracle.
 The CUDA kernels mask ragged edges on out, in and the rank, so no
 operand is zero-padded (the reference's ``_pad_to`` /
 ``_normalize_padded`` / ``_pad_factored`` have no counterpart here).
+
+Stacked leaves — W (L, out, in) with the scan-layer axes flattened to
+one L, V and the projector (N, L, …) — take
+:func:`maecho_streaming_gram_stacked` and
+:func:`maecho_streaming_apply_stacked`: dense projectors run B10/B13/B16,
+stacked scalars (N, L) and diagonals (N, L, in) B12/B15/B18 (the scalar
+broadcast once to (N, L, in) in the Gram half), one launch each for all
+L layers.  Factored stacked projectors need B11/B14/B17 (ROADMAP A7)
+and raise.
 """
 from __future__ import annotations
 
@@ -24,12 +33,18 @@ import warnings
 from repro_torch.core.plan import proj_kind
 from repro_torch.kernels import ref
 from repro_torch.kernels.maecho_gram import (compressed_residual, maecho_gram,
-                                             maecho_gram_diag, maecho_gram_left)
+                                             maecho_gram_diag,
+                                             maecho_gram_diag_stacked,
+                                             maecho_gram_left, maecho_gram_stacked)
 from repro_torch.kernels.maecho_update import (maecho_update, maecho_update_diag,
-                                               maecho_update_left)
+                                               maecho_update_diag_stacked,
+                                               maecho_update_left,
+                                               maecho_update_stacked)
 from repro_torch.kernels.maecho_v_update import (maecho_v_update,
                                                  maecho_v_update_diag,
-                                                 maecho_v_update_factored)
+                                                 maecho_v_update_diag_stacked,
+                                                 maecho_v_update_factored,
+                                                 maecho_v_update_stacked)
 
 # below this edge a leaf runs the plain oracle (the reference's tile
 # rule; core.plan's routing keys off the same constant)
@@ -88,3 +103,38 @@ def maecho_streaming_apply(alpha, ctx, *, eta: float = 1.0,
         return Wn, maecho_v_update_diag(Wn, V, P, frac, norm, eps)
     Wn = ref.maecho_update_ref_any(W, V, P, alpha, eta)
     return Wn, ref.maecho_v_update_ref(Wn, V, P, frac, norm, eps)
+
+
+def maecho_streaming_gram_stacked(W, V, P):
+    """Stacked Gram half: ``(G, ctx)`` with G the (L, N, N) per-layer
+    Eq. 6 Grams from one kernel launch and ``ctx`` the reuse context for
+    :func:`maecho_streaming_apply_stacked`.  W (L, out, in), V
+    (N, L, out, in), P (N, L) scalars, (N, L, in) diagonals or
+    (N, L, in, in) dense, all in the "oi" layout, any out and in (the
+    kernels mask ragged edges; the plan sends leaves below one tile to
+    the oracle before they get here)."""
+    in_d = W.shape[2]
+    kind = proj_kind(P, 1)
+    if kind == "factored":
+        raise NotImplementedError(
+            "factored stacked projectors need the kernels B11/B14/B17, which "
+            "are not ported yet (ROADMAP item A7)")
+    if kind == "full":
+        return maecho_gram_stacked(W, V, P), (kind, W, V, P)
+    p = P[:, :, None].expand(-1, -1, in_d).contiguous() if kind == "scalar" else P
+    return maecho_gram_diag_stacked(W, V, p), ("diag", W, V, p)
+
+
+def maecho_streaming_apply_stacked(alpha, ctx, *, eta: float = 1.0,
+                                   frac: float = 0.5, norm: bool = False,
+                                   eps: float = 1e-12):
+    """Stacked update half: per-layer Eq. 7 then Eq. 11, one launch each,
+    on the context from :func:`maecho_streaming_gram_stacked`.
+    ``alpha`` is the (L, N) stack of per-layer solves.  Returns
+    ``(W', V')``, (L, out, in) and (N, L, out, in)."""
+    kind, W, V, P = ctx
+    if kind == "full":
+        Wn = maecho_update_stacked(W, V, P, alpha, eta)
+        return Wn, maecho_v_update_stacked(Wn, V, P, frac, norm, eps)
+    Wn = maecho_update_diag_stacked(W, V, P, alpha, eta)
+    return Wn, maecho_v_update_diag_stacked(Wn, V, P, frac, norm, eps)

@@ -6,8 +6,11 @@ algebra understands — stacked scalars (N,), diagonals (N, in), dense
 (N, in, in) and factored ``{"U": (N, in, k), "s": (N, k)}`` — through
 ``core.maecho._apply_P`` (imported lazily: ``core`` imports this
 package for dispatch).  The factored-only ones take the projector's
-factors, as the kernels B2/B5/B8 do; the diagonal-only ones at the end
-take the (N, in) diagonal, as B3/B6/B9 do.
+factors, as the kernels B2/B5/B8 do; the diagonal-only ones take the
+(N, in) diagonal, as B3/B6/B9 do.  The stacked ones at the end are the
+dense and diagonal forms with a layer axis (W (L, out, in), V and the
+projectors (N, L, …), α (L, N)), as B10/B13/B16 and B12/B15/B18 take
+them: batched products over L, no loop over layers.
 """
 from __future__ import annotations
 
@@ -37,14 +40,17 @@ def maecho_update_ref_any(W, V, P, alpha, eta: float = 1.0,
 
 
 def maecho_v_update_ref(W, V, P, frac: float, norm: bool = False,
-                        eps: float = 1e-12, convention: str = "oi"):
-    """Eq. 11: Vᵢ' = Vᵢ + Norm(Δᵢ − frac·ΔᵢPᵢ), Δᵢ = W − Vᵢ."""
+                        eps: float = 1e-12, convention: str = "oi", nb: int = 1):
+    """Eq. 11: Vᵢ' = Vᵢ + Norm(Δᵢ − frac·ΔᵢPᵢ), Δᵢ = W − Vᵢ.  ``V`` and
+    ``P`` carry ``nb`` leading batch axes (the client axis, after a
+    stacked leaf's layer axis) and ``W`` broadcasts against ``V``; by
+    default W is one leaf and gets the client axis in front."""
     from repro_torch.core.maecho import _apply_P
 
-    delta = W[None] - V
-    U = delta - frac * _apply_P(delta, P, convention)
+    delta = (W[None] if nb == 1 else W) - V
+    U = delta - frac * _apply_P(delta, P, convention, nb)
     if norm:
-        ax = -1 if convention == "oi" else 1
+        ax = -1 if convention == "oi" or delta.dim() == nb + 1 else -2
         nrm = torch.linalg.vector_norm(U.float(), dim=ax, keepdim=True)
         U = U / nrm.clamp_min(eps).to(U.dtype)
     return V + U
@@ -119,3 +125,60 @@ def maecho_v_update_diag_ref(W, V, p, frac: float, norm: bool = False,
     if norm:
         u = u / torch.linalg.vector_norm(u, dim=-1, keepdim=True).clamp_min(eps)
     return (V.float() + u).to(V.dtype)
+
+
+# --------------------------------------------------------------------------
+# stacked leaves: W (L, out, in), V (N, L, out, in), dense P (N, L, in, in)
+# or diagonals p (N, L, in), alpha (L, N); one batched product over L
+# --------------------------------------------------------------------------
+def _gram_stacked(R):
+    """(L, N, N) Grams of a residual stack R (N, L, out, in)."""
+    Rf = R.float().transpose(0, 1).reshape(R.shape[1], R.shape[0], -1)
+    return Rf @ Rf.transpose(1, 2)
+
+
+def _update_stacked(W, R, alpha, eta: float):
+    D = -2.0 * torch.einsum("ln,nloi->loi", alpha.float(), R.float())
+    return (W.float() + eta * D).to(W.dtype)
+
+
+def _v_finish(V, u, norm: bool, eps: float):
+    if norm:
+        u = u / torch.linalg.vector_norm(u, dim=-1, keepdim=True).clamp_min(eps)
+    return (V.float() + u).to(V.dtype)
+
+
+def maecho_gram_stacked_ref(W, V, P):
+    """G[l, i, j] = ⟨Rₗᵢ, Rₗⱼ⟩ with Rₗᵢ = (Wₗ − Vᵢₗ)Pᵢₗ, dense P."""
+    return _gram_stacked((W[None] - V).float() @ P.float())
+
+
+def maecho_update_stacked_ref(W, V, P, alpha, eta: float = 1.0):
+    """Eq. 7 per layer: Wₗ' = Wₗ + η·(−Σᵢ 2αₗᵢ (Wₗ − Vᵢₗ)Pᵢₗ)."""
+    return _update_stacked(W, (W[None] - V).float() @ P.float(), alpha, eta)
+
+
+def maecho_v_update_stacked_ref(W, V, P, frac: float, norm: bool = False,
+                                eps: float = 1e-12):
+    """Eq. 11 per layer: Vᵢₗ' = Vᵢₗ + Norm(Δᵢₗ − frac·ΔᵢₗPᵢₗ)."""
+    d = (W[None] - V).float()
+    return _v_finish(V, d - frac * (d @ P.float()), norm, eps)
+
+
+def maecho_gram_diag_stacked_ref(W, V, p):
+    """G[l, i, j] = ⟨Rₗᵢ, Rₗⱼ⟩ with Rₗᵢ = (Wₗ − Vᵢₗ)·pᵢₗ, p (N, L, in)."""
+    return _gram_stacked((W[None] - V).float() * p.float()[:, :, None, :])
+
+
+def maecho_update_diag_stacked_ref(W, V, p, alpha, eta: float = 1.0):
+    """Eq. 7 per layer, elementwise."""
+    return _update_stacked(W, (W[None] - V).float() * p.float()[:, :, None, :],
+                           alpha, eta)
+
+
+def maecho_v_update_diag_stacked_ref(W, V, p, frac: float, norm: bool = False,
+                                     eps: float = 1e-12):
+    """Eq. 11 per layer, elementwise: Vᵢₗ' = Vᵢₗ + Norm((Wₗ − Vᵢₗ)·(1 −
+    frac·pᵢₗ))."""
+    u = (W[None] - V).float() * (1.0 - frac * p.float()[:, :, None, :])
+    return _v_finish(V, u, norm, eps)

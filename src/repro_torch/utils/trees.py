@@ -112,3 +112,11 @@ def tree_paths(tree: Pytree) -> list[tuple[str, Any]]:
 
     walk(tree, [])
     return out
+
+
+def map_with_path(fn: Callable[[str, Any], Any], tree: Pytree) -> Pytree:
+    """Map ``fn(path, leaf) -> new leaf`` over a tree, preserving its
+    structure; ``path`` is the dotted path of :func:`tree_paths`."""
+    leaves, treedef = tree_flatten(tree)
+    return tree_unflatten(treedef, [fn(p, leaf) for (p, _), leaf
+                                    in zip(tree_paths(tree), leaves)])

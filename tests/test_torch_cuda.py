@@ -1,4 +1,5 @@
-"""The CUDA kernels B1/B4/B7, B2/B5/B8 and B3/B6/B9 against their plain versions on the card
+"""The CUDA kernels B1/B4/B7, B2/B5/B8, B3/B6/B9 and the stacked B10/B13/B16 and
+B12/B15/B18 against their plain versions on the card
 (``PYTHONPATH=src python -m pytest --noconftest tests/test_torch_cuda.py``
 on a machine with an NVIDIA Hopper GPU and ``nvcc``; ``--noconftest``
 because ``tests/conftest.py`` imports jax, which such a machine need not
@@ -11,13 +12,19 @@ import torch
 from repro_torch.core.maecho import MAEchoConfig, maecho_aggregate
 from repro_torch.kernels import ref
 from repro_torch.kernels.maecho_gram import (compressed_residual, maecho_gram,
-                                             maecho_gram_diag, maecho_gram_left)
+                                             maecho_gram_diag,
+                                             maecho_gram_diag_stacked,
+                                             maecho_gram_left, maecho_gram_stacked)
 from repro_torch.kernels.maecho_update import (maecho_update, maecho_update_diag,
-                                               maecho_update_left)
+                                               maecho_update_diag_stacked,
+                                               maecho_update_left,
+                                               maecho_update_stacked)
 from repro_torch.kernels.maecho_v_update import (maecho_v_update,
                                                  maecho_v_update_diag,
+                                                 maecho_v_update_diag_stacked,
                                                  maecho_v_update_factored,
-                                                 maecho_v_update_left)
+                                                 maecho_v_update_left,
+                                                 maecho_v_update_stacked)
 
 pytestmark = pytest.mark.cuda
 
@@ -215,3 +222,100 @@ def test_diag_wrappers_reject_bad_operands(card):
         with pytest.raises(ValueError, match="clients"):
             fn(W, torch.zeros(0, 8, 8, device="cuda"), torch.zeros(0, 8, device="cuda"),
                *args)
+
+
+STACKED_FULL = (maecho_gram_stacked, maecho_update_stacked, maecho_v_update_stacked)
+STACKED_DIAG = (maecho_gram_diag_stacked, maecho_update_diag_stacked,
+                maecho_v_update_diag_stacked)
+
+
+def _stacked_inputs(gen, L, out_d, in_d, N):
+    W = torch.randn(L, out_d, in_d, device="cuda", generator=gen)
+    V = W + 0.1 * torch.randn(N, L, out_d, in_d, device="cuda", generator=gen)
+    U = torch.linalg.qr(torch.randn(N, L, in_d, max(1, in_d // 2), device="cuda",
+                                    generator=gen))[0]
+    P = (U @ U.transpose(-1, -2)).contiguous()
+    p = torch.rand(N, L, in_d, device="cuda", generator=gen)
+    a = torch.softmax(torch.randn(L, N, device="cuda", generator=gen), -1).contiguous()
+    return W, V, P, p, a
+
+
+# (L, out, in, N): ragged out/in with one client, a multi-tile ragged
+# leaf, one layer, and the shared-memory cap of 54 clients
+@pytest.mark.parametrize("shape", ((3, 33, 65, 1), (3, 200, 300, 5), (1, 128, 256, 3),
+                                   (2, 64, 96, 54)))
+def test_stacked_kernels_match_plain(card, shape):
+    """B10/B13/B16 (dense) and B12/B15/B18 (diagonal) against their plain
+    versions, both Grams bitwise reproducible, and B10's layer l equal
+    to B1 on that layer alone."""
+    W, V, P, p, a = _stacked_inputs(card, *shape)
+    for (gram, update, v_update), (g_ref, u_ref, v_ref), Pk in (
+            (STACKED_FULL, (ref.maecho_gram_stacked_ref, ref.maecho_update_stacked_ref,
+                            ref.maecho_v_update_stacked_ref), P),
+            (STACKED_DIAG, (ref.maecho_gram_diag_stacked_ref,
+                            ref.maecho_update_diag_stacked_ref,
+                            ref.maecho_v_update_diag_stacked_ref), p)):
+        G, Gr = gram(W, V, Pk), g_ref(W, V, Pk)
+        assert G.shape == (shape[0], shape[3], shape[3])
+        assert (G - Gr).abs().max() <= 1e-5 * Gr.abs().max()
+        assert torch.equal(G, gram(W, V, Pk))
+        Wn = update(W, V, Pk, a, 0.5)
+        torch.testing.assert_close(Wn, u_ref(W, V, Pk, a, 0.5), atol=1e-4, rtol=0)
+        for norm in (False, True):
+            torch.testing.assert_close(v_update(Wn, V, Pk, 0.9, norm),
+                                       v_ref(Wn, V, Pk, 0.9, norm), atol=1e-4, rtol=0)
+    l = shape[0] - 1
+    assert torch.equal(maecho_gram_stacked(W, V, P)[l],
+                       maecho_gram(W[l].contiguous(), V[:, l].contiguous(),
+                                   P[:, l].contiguous()))
+
+
+def test_stacked_wrappers_reject_bad_operands(card):
+    W = torch.zeros(2, 8, 8, device="cuda")
+    V = torch.zeros(3, 2, 8, 8, device="cuda")
+    P = torch.zeros(3, 2, 8, 8, device="cuda")
+    p = torch.zeros(3, 2, 8, device="cuda")
+    a = torch.ones(2, 3, device="cuda")
+    with pytest.raises(ValueError, match="float32"):
+        maecho_gram_stacked(W, V, P.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        maecho_update_stacked(W, V, P.transpose(-1, -2), a)
+    with pytest.raises(ValueError, match="shapes"):
+        maecho_v_update_stacked(W, V, P[:, :1].contiguous(), 0.5)
+    with pytest.raises(ValueError, match="shapes"):
+        maecho_update_diag_stacked(W, V, p, a.T.contiguous())
+    with pytest.raises(ValueError, match="V must be"):
+        maecho_gram_diag_stacked(W, V[0], p)
+    with pytest.raises(ValueError, match="clients"):
+        maecho_gram_diag_stacked(W, torch.zeros(55, 2, 8, 8, device="cuda"),
+                                 torch.zeros(55, 2, 8, device="cuda"))
+    with pytest.raises(ValueError, match="several devices"):
+        maecho_v_update_diag_stacked(W, V, p.cpu(), 0.5)
+
+
+@pytest.mark.parametrize("L", (1, 3, 8))
+def test_stacked_aggregate_launches_once_per_leaf_and_iteration(card, L):
+    """A kernel aggregate with stacked leaves launches each stacked kernel
+    once per leaf and outer iteration, whatever L is — B10/B13/B16 for
+    the dense leaf, B12/B15/B18 for the scalar one — and no unstacked
+    kernel; it matches the oracle aggregate to 1e-3."""
+    N, tau = 3, 2
+    clients = [{"q": torch.randn(L, 160, 200, device="cuda", generator=card),
+                "o": torch.randn(L, 200, 144, device="cuda", generator=card),
+                "b": torch.randn(L, 200, device="cuda", generator=card)}
+               for _ in range(N)]
+    U = torch.linalg.qr(torch.randn(N, L, 160, 40, device="cuda", generator=card))[0]
+    projs = [{"q": (U[i] @ U[i].transpose(-1, -2)).contiguous(),
+              "o": torch.ones(L, device="cuda"), "b": torch.ones(L, device="cuda")}
+             for i in range(N)]
+    cfg = MAEchoConfig(tau=tau, eta=0.5, mu=20.0)
+    kernels = STACKED_FULL + STACKED_DIAG + OTHERS + DIAG
+    before = [k.launches for k in kernels]
+    got = maecho_aggregate(clients, projs, cfg, convention="io",
+                           stack_levels={"q": 1, "o": 1, "b": 1}, backend="kernel")
+    torch.cuda.synchronize()
+    assert [k.launches - b for k, b in zip(kernels, before)] == [tau] * 6 + [0] * 9
+    want = maecho_aggregate(clients, projs, cfg, convention="io",
+                            stack_levels={"q": 1, "o": 1, "b": 1}, backend="oracle")
+    for k in ("q", "o", "b"):
+        torch.testing.assert_close(got[k], want[k], atol=1e-3, rtol=0)

@@ -46,7 +46,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         pytest.skip("a CUDA device is present: the default device is valid")
     from repro_torch import interop
     from repro_torch.core.maecho import maecho_aggregate
+    from repro_torch.configs import get_smoke_config
     from repro_torch.fl import client, models
+    from repro_torch.fl.llm_adapter import aggregate_llm
+    from repro_torch.models.zoo import get_model
 
     layers = models.init(models.MLP_SPEC, device="cpu")
     x = np.zeros((4, 784), np.float32)
@@ -57,7 +60,9 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
              lambda: client.evaluate_classifier(models.MLP_SPEC, layers, x, y),
              lambda: client.compute_projections(models.MLP_SPEC, layers, x),
              lambda: maecho_aggregate([layers, layers]),
-             lambda: interop.params_from_numpy({"a": x})]
+             lambda: interop.params_from_numpy({"a": x}),
+             lambda: get_model(get_smoke_config("qwen2-0.5b")).init_params(0),
+             lambda: aggregate_llm(get_smoke_config("qwen2-0.5b"), [{"a": x}] * 2)]
     for call in calls:
         with pytest.raises(RuntimeError, match="cuda"):
             call()

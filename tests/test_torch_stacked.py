@@ -1,0 +1,197 @@
+"""Port parity on the stacked-leaf path (scan-stacked layers, the LLM
+layout): the plain versions of B10/B13/B16 and B12/B15/B18 (the CPU path
+of their wrappers) against the reference's stacked Pallas kernels in
+interpret mode, the stacked streaming dispatch, the plan's per-leaf
+routes at one and two layer axes, and the aggregate with
+``stack_levels`` on the kernel backend against the reference's.
+
+Inputs come from fixed numpy seeds (or the reference's own case
+builder).  Tolerances are the reference's kernel tests'
+(tests/test_maecho_kernels.py): Gram atol 1e-2 / rtol 1e-4, Eq. 7 and
+Eq. 11 1e-4, aggregate 1e-3.
+"""
+import dataclasses
+
+import jax
+import numpy as np
+import pytest
+
+import strategies as strat
+from repro.core import maecho as jm
+from repro.kernels import maecho_gram as jmg
+from repro.kernels import maecho_update as jmu
+from repro.kernels import maecho_v_update as jmv
+from repro.kernels import ops as jops
+from repro_torch import interop
+from repro_torch.core import maecho as tm
+from repro_torch.kernels import maecho_gram as tmg
+from repro_torch.kernels import maecho_update as tmu
+from repro_torch.kernels import maecho_v_update as tmv
+from repro_torch.kernels import ops, ref
+
+GRAM_TOL = dict(atol=1e-2, rtol=1e-4)
+APPLY_TOL = dict(atol=1e-4, rtol=1e-4)
+JCFG = jm.MAEchoConfig(tau=3, eta=0.5, mu=20.0, qp_iters=60)
+TCFG = tm.MAEchoConfig(tau=3, eta=0.5, mu=20.0, qp_iters=60)
+STACKED = (tmg.maecho_gram_stacked, tmu.maecho_update_stacked,
+           tmv.maecho_v_update_stacked, tmg.maecho_gram_diag_stacked,
+           tmu.maecho_update_diag_stacked, tmv.maecho_v_update_diag_stacked)
+
+
+def to_port(tree):
+    return interop.params_from_numpy(
+        jax.tree_util.tree_map(np.asarray, tree), device="cpu")
+
+
+def _close(got, want, **tol):
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **tol)
+
+
+def _stacked_leaf(seed, n, L, out_d, in_d, kind):
+    """W (L, out, in), V (N, L, out, in), the projector — dense
+    (N, L, in, in) rank-in/2 projectors, (N, L, in) diagonals in [0, 1]
+    or (N, L) scalars — and alpha (L, N) on the simplex, float32."""
+    r = np.random.RandomState(seed)
+    W = (r.randn(L, out_d, in_d) * 0.5).astype(np.float32)
+    V = (W + r.randn(n, L, out_d, in_d) * 0.5).astype(np.float32)
+    if kind == "full":
+        U = np.linalg.qr(r.randn(n, L, in_d, in_d // 2))[0]
+        P = U @ np.swapaxes(U, -1, -2)
+    elif kind == "diag":
+        P = r.rand(n, L, in_d)
+    else:
+        P = r.rand(n, L)
+    a = r.rand(L, n) + 0.1
+    return W, V, P.astype(np.float32), (a / a.sum(-1, keepdims=True)).astype(np.float32)
+
+
+@pytest.mark.parametrize("norm", (False, True))
+@pytest.mark.parametrize("kind", ("full", "diag"))
+def test_stacked_plain_versions_match_pallas_interpret(kind, norm):
+    """ref.maecho_*_stacked_ref and the six stacked wrappers on CPU
+    tensors against the reference's stacked Pallas kernels in interpret
+    mode (L = 2, N = 3, out 128, in 256); the wrappers count nothing on
+    the CPU."""
+    W, V, P, a = _stacked_leaf(11 + norm, 3, 2, 128, 256, kind)
+    Wt, Vt, Pt, at = to_port((W, V, P, a))
+    frac = 20.0 / 21.0
+    if kind == "full":
+        gram, update, v_update = STACKED[:3]
+        want_g = jmg.maecho_gram_stacked(W, V, P)
+        want_w = jmu.maecho_update_stacked(W, V, P, a, eta=0.5)
+        want_v = jmv.maecho_v_update_stacked(want_w, V, P, frac=frac, norm=norm,
+                                             bi=256)
+        plain = (ref.maecho_gram_stacked_ref, ref.maecho_update_stacked_ref,
+                 ref.maecho_v_update_stacked_ref)
+    else:
+        gram, update, v_update = STACKED[3:]
+        want_g = jmg.maecho_gram_diag_stacked(W, V, P)
+        want_w = jmu.maecho_update_diag_stacked(W, V, P, a, eta=0.5)
+        want_v = jmv.maecho_v_update_diag_stacked(want_w, V, P, frac=frac,
+                                                  norm=norm, bi=256)
+        plain = (ref.maecho_gram_diag_stacked_ref, ref.maecho_update_diag_stacked_ref,
+                 ref.maecho_v_update_diag_stacked_ref)
+    Wn = to_port(np.asarray(want_w))
+    for fn in STACKED:
+        fn.launches = 0
+    for g_fn in (plain[0], gram):
+        _close(g_fn(Wt, Vt, Pt), want_g, **GRAM_TOL)
+    for u_fn in (plain[1], update):
+        _close(u_fn(Wt, Vt, Pt, at, 0.5), want_w, **APPLY_TOL)
+    for v_fn in (plain[2], v_update):
+        _close(v_fn(Wn, Vt, Pt, frac, norm), want_v, **APPLY_TOL)
+    assert [fn.launches for fn in STACKED] == [0] * 6
+
+
+@pytest.mark.parametrize("kind,shape,norm", (("full", (128, 256), False),
+                                             ("full", (200, 140), True),
+                                             ("diag", (128, 256), True),
+                                             ("diag", (200, 140), False),
+                                             ("scalar", (128, 256), False),
+                                             ("scalar", (200, 140), True)))
+def test_streaming_stacked_matches_reference(kind, shape, norm):
+    """ops.maecho_streaming_{gram,apply}_stacked (CPU: plain versions;
+    the reference pads, the port masks) against the reference's stacked
+    streaming pipeline in interpret mode, on tile and ragged leaves."""
+    W, V, P, a = _stacked_leaf(23, 3, 2, *shape, kind)
+    kw = dict(eta=0.5, frac=20.0 / 21.0, norm=norm, eps=1e-12)
+    want_g, jctx = jops.maecho_streaming_gram_stacked(W, V, P)
+    want_w, want_v = jops.maecho_streaming_apply_stacked(a, jctx, **kw)
+    got_g, ctx = ops.maecho_streaming_gram_stacked(*to_port((W, V, P)))
+    assert ctx[0] == ("full" if kind == "full" else "diag")
+    got_w, got_v = ops.maecho_streaming_apply_stacked(to_port(a), ctx, **kw)
+    _close(got_g, want_g, **GRAM_TOL)
+    _close(got_w, want_w, **APPLY_TOL)
+    _close(got_v, want_v, **APPLY_TOL)
+
+
+def _routing_tree(lead):
+    """A stacked model of leaves on every route: tileable dense and
+    scalar leaves, a sub-tile diagonal one and a 1-D bias."""
+    n = 3
+    W = {"a": np.zeros(lead + (256, 140), np.float32),
+         "b": np.zeros(lead + (64, 300), np.float32),
+         "c": np.zeros(lead + (256,), np.float32),
+         "d": np.zeros(lead + (300, 200), np.float32)}
+    P = {"a": np.zeros((n,) + lead + (140, 140), np.float32),
+         "b": np.zeros((n,) + lead + (300,), np.float32),
+         "c": np.zeros((n,) + lead, np.float32),
+         "d": np.zeros((n,) + lead, np.float32)}
+    return W, P, {k: len(lead) for k in W}
+
+
+@pytest.mark.parametrize("backend", ("oracle", "kernel", "auto"))
+@pytest.mark.parametrize("convention", ("oi", "io"))
+@pytest.mark.parametrize("lead", ((4,), (2, 3)), ids=("levels1", "levels2"))
+def test_dispatch_summary_matches_reference(lead, convention, backend):
+    W, P, levels = _routing_tree(lead)
+    want = jm.dispatch_summary(W, P, levels, JCFG, convention, backend)
+    got = tm.dispatch_summary(to_port(W), to_port(P), levels, TCFG, convention,
+                              backend)
+    assert got == want
+    if backend != "oracle":
+        assert ("a", len(lead), "stacked") in got[0]
+
+
+@pytest.mark.parametrize("backend", ("kernel", "auto"))
+def test_factored_stacked_leaf_raises_on_kernel_backends(backend):
+    """Stacked factored projectors need B11/B14/B17 (ROADMAP A7): the
+    kernel route raises instead of quietly running the oracle, which
+    still takes them on backend="oracle"."""
+    clients, projs, levels, _ = strat.build_case(5, 2, "factored", "oi", (2,),
+                                                 (128, 128), False)
+    tc, tp = to_port(clients), to_port(projs)
+    with pytest.raises(NotImplementedError, match="B11/B14/B17"):
+        tm.maecho_aggregate(tc, tp, TCFG, stack_levels=levels, backend=backend,
+                            device="cpu")
+    got = tm.maecho_aggregate(tc, tp, TCFG, stack_levels=levels, backend="oracle",
+                              device="cpu")
+    want = jm.maecho_aggregate(clients, projs, JCFG, stack_levels=levels)
+    _close(got["W"], want["W"], atol=1e-3)
+
+
+@pytest.mark.parametrize("kind,convention,lead,masked", (
+    ("full", "io", (2,), False), ("full", "oi", (2, 2), True),
+    ("scalar", "io", (3,), False), ("diag", "oi", (2,), False),
+    ("diag", "io", (2, 2), False)))
+def test_stacked_aggregate_matches_reference(kind, convention, lead, masked):
+    """maecho_aggregate(stack_levels=...) on the port's kernel backend
+    (CPU: the stacked plain versions) and oracle backend against the
+    reference's kernel backend at τ = 3, anchors included, within 1e-3;
+    the sequential QP too on the masked case."""
+    clients, projs, levels, mask = strat.build_case(7, 3, kind, convention, lead,
+                                                    (160, 136), masked)
+    want_w, want_v = jm.maecho_aggregate(clients, projs, JCFG, convention=convention,
+                                         stack_levels=levels, client_mask=mask,
+                                         return_anchors=True, backend="kernel")
+    cfgs = [TCFG] + ([dataclasses.replace(TCFG, qp_batched=False)] if masked else [])
+    tmask = None if mask is None else np.asarray(mask)
+    for cfg in cfgs:
+        for backend in ("kernel", "oracle"):
+            got_w, got_v = tm.maecho_aggregate(
+                to_port(clients), to_port(projs), cfg, convention=convention,
+                stack_levels=levels, client_mask=tmask, return_anchors=True,
+                backend=backend, device="cpu")
+            for key in ("W", "b"):
+                _close(got_w[key], want_w[key], atol=1e-3)
+                _close(got_v[key], want_v[key], atol=1e-3)
