@@ -74,12 +74,41 @@ Phases (any failure exits nonzero; nothing is caught):
    output leaf must be finite, and the perplexities of both silos,
    FedAvg and MA-Echo on both domains (printed) must be finite.
 
+Added with the stacked factored kernels and the Gram kernels' client
+blocking (run right after phase 6, in this order, except 10 and 11,
+which follow phase 7):
+
+8. B11 (Gram), B14 (Eq. 7) and B17 (Eq. 11) for factored projectors of
+   a stacked leaf against their plain versions on a ragged leaf (L = 3,
+   200 x 300, k = 40, N = 5; B17 with the row-norm off and on) and at
+   Qwen2-0.5B's wq (24 x 896 x 896) and w_gate (24 x 4864 x 896) with
+   k = 89 and N = 2, timed there from CUDA-graph replays (B17 as its
+   kernel alone and as its wrapper).
+9. Past 54 clients: B1, B2, B3, B10, B11 and B12 against their plain
+   versions and a float64 Gram at N = 55, 64 and 128 on a W0-sized leaf
+   (400 x 784; L = 2 for the stacked ones; rank 78), each bitwise
+   reproducible, timed at
+   N = 4, 55, 64 and 128; B1-B3 at N = 4 printed beside run Q's (PERF.md
+   §6); the largest workspace printed.  Then a dense-projector aggregate
+   of 64 synthetic clients at the paper MLP's shapes: B1/B4/B7 launch
+   2·τ times at τ = 5, and kernel and oracle agree to 1e-3.
+10. The LLM path's silos with every dense (24, 896, 896) projector
+   factored layer by layer at k = 89 (``factor_projection``):
+   ``aggregate_llm`` at τ = 15 (timed, peak memory), B11/B14/B17 5·τ
+   times, B12/B15/B18 2·τ, B3/B6/B9 τ, no other kernel (B10/B13/B16
+   never), kernel vs oracle at τ = 5 within 1e-3, finite perplexities.
+11. The reference's ``bench_stacked_agg`` factored case (N = 4, one
+   (L, 512, 512) leaf, k = 32, τ = 2) at L = 2 and 16: kernel vs oracle
+   within 1e-3, and each of B11/B14/B17 launched once per outer
+   iteration, whatever L is.
+
 It prints each phase's time, the QP's and the kernels' time inside a
 kernel aggregate of each path (CUDA events around each call), a
 ``{"kernels": [...]}`` JSON line, the card's name and power limit, and
 as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
+import gc
 import json
 import math
 import pathlib
@@ -107,8 +136,16 @@ STACKED = ("maecho_gram_stacked", "maecho_update_stacked",
            "maecho_v_update_stacked")                                      # B10 B13 B16
 STACKED_DIAG = ("maecho_gram_diag_stacked", "maecho_update_diag_stacked",
                 "maecho_v_update_diag_stacked")                            # B12 B15 B18
-KERNELS = DENSE + FACTORED + DIAG + STACKED + STACKED_DIAG
+STACKED_LEFT = ("maecho_gram_left_stacked", "maecho_update_left_stacked",
+                "maecho_v_update_factored_stacked")                        # B11 B14 B17
+KERNELS = DENSE + FACTORED + DIAG + STACKED + STACKED_DIAG + STACKED_LEFT
+GRAMS = ("maecho_gram", "maecho_gram_left", "maecho_gram_diag", "maecho_gram_stacked",
+         "maecho_gram_left_stacked", "maecho_gram_diag_stacked")   # B1 B2 B3 B10 B11 B12
+MANY_CLIENTS = (55, 64, 128)   # past the 54 clients one Gram CTA parks
 LLM_TAU = 15            # the example's MAEchoConfig(tau=15, eta=0.5, mu=20)
+LLM_RANK = 89           # table6_svd.py's "factored0.1" at d_model: int(0.1 * 896)
+# B1/B2 (k = 78)/B3 at W0, N = 4, in run Q (PERF.md §6; H100 80GB HBM3, 700 W)
+RUN_Q_MS = {"maecho_gram": 0.3078, "maecho_gram_left": 0.0426, "maecho_gram_diag": 0.0225}
 REPLACES = {"maecho_gram": "src/repro/kernels/maecho_gram.py:131",
             "maecho_update": "src/repro/kernels/maecho_update.py:76",
             "maecho_v_update": "src/repro/kernels/maecho_v_update.py:107",
@@ -123,7 +160,10 @@ REPLACES = {"maecho_gram": "src/repro/kernels/maecho_gram.py:131",
             "maecho_v_update_stacked": "src/repro/kernels/maecho_v_update.py:186",
             "maecho_gram_diag_stacked": "src/repro/kernels/maecho_gram.py:368",
             "maecho_update_diag_stacked": "src/repro/kernels/maecho_update.py:252",
-            "maecho_v_update_diag_stacked": "src/repro/kernels/maecho_v_update.py:271"}
+            "maecho_v_update_diag_stacked": "src/repro/kernels/maecho_v_update.py:271",
+            "maecho_gram_left_stacked": "src/repro/kernels/maecho_gram.py:337",
+            "maecho_update_left_stacked": "src/repro/kernels/maecho_update.py:217",
+            "maecho_v_update_factored_stacked": "src/repro/kernels/maecho_v_update.py:233"}
 
 
 def fail(msg: str) -> None:
@@ -177,6 +217,19 @@ def time_cases(torch, label: str, cases: dict, timings: dict, reps: int = 50) ->
 def bound_ms(flops: float, nbytes: float) -> tuple:
     t_ops, t_bytes = flops / FP32_FLOPS * 1e3, nbytes / HBM_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def gram_left_flops(N: int, out_d: int, in_d: int, k: int) -> float:
+    """Least operations of one (N, N) Gram of Rᵢ = Aᵢ·UTᵢ, A (N, out, k),
+    UT (N, k, in): the cheaper of forming every Rᵢ and contracting the
+    pairs, or the k x k cross-Gram identity ⟨Rᵢ, Rⱼ⟩ = Σ (AᵢᵀAⱼ) ⊙
+    (UTᵢ·UTⱼᵀ), 2·k²·(out + in) + 2·k² a pair (i <= j), which never forms
+    R.  The kernels (B2, B11) form R tile by tile, so at k << in their
+    bound is the identity's."""
+    pairs = N * (N + 1) / 2
+    form_r = 2.0 * N * out_d * in_d * k + 2.0 * pairs * out_d * in_d
+    cross = pairs * (2.0 * k * k * (out_d + in_d) + 2.0 * k * k)
+    return min(form_r, cross)
 
 
 def layer_inputs(torch, gen, out_d, in_d, N):
@@ -295,7 +348,8 @@ def phase_factored_kernels(torch, kern, ref):
     torch.cuda.synchronize()
 
     # Bounds count each input read once, each output written once, and
-    # the operations each function does.  B2, B5 and the B8 kernel take
+    # the least operations each function needs (B2: gram_left_flops).
+    # B2, B5 and the B8 kernel take
     # the reference's pallas_call operands: (A, Uᵀ), (W, A, Uᵀ, α) and
     # (B, Uᵀ, W', V).  The B8 wrapper, as the factored path calls it,
     # takes (W', V, U, s, Uᵀ) and forms B itself; its bound needs only
@@ -311,7 +365,7 @@ def phase_factored_kernels(torch, kern, ref):
         cases = {
             "maecho_gram_left": (lambda: kern.maecho_gram_left(A, UT),
                                  lambda: ref.maecho_gram_left_ref(A, UT),
-                                 gemm + N * (N + 1) * OI,
+                                 gram_left_flops(N, out_d, in_d, k),
                                  4.0 * (N * OK + N * KI + N * N)),
             "maecho_update_left": (lambda: kern.maecho_update_left(W, A, UT, alpha, eta),
                                    lambda: ref.maecho_update_left_ref(W, A, UT, alpha, eta),
@@ -483,6 +537,328 @@ def phase_stacked_kernels(torch, kern, ref):
     return err, timings
 
 
+def phase_stacked_left_kernels(torch, kern, ref):
+    """B11/B14/B17 vs plain on the card (factored projectors of a stacked
+    leaf); returns (errors, timings) keyed like :func:`phase_stacked_kernels`'."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    frac, eta = 20.0 / 21.0, 0.5
+    g, u, v = STACKED_LEFT
+
+    def inputs(L, out_d, in_d, k, N):
+        W = torch.randn(L, out_d, in_d, device="cuda", generator=gen) * 0.1
+        V = W + torch.randn(N, L, out_d, in_d, device="cuda", generator=gen) * 0.05
+        U = torch.linalg.qr(torch.randn(N, L, in_d, k, device="cuda",
+                                        generator=gen))[0].contiguous()
+        s = torch.rand(N, L, k, device="cuda", generator=gen) * 0.9 + 0.1
+        alpha = torch.softmax(torch.randn(L, N, device="cuda", generator=gen), -1)
+        A = kern.compressed_residual(W, V, U, s)
+        return W, V, U, s, alpha.contiguous(), A, U.transpose(-1, -2).contiguous()
+
+    err = {name: 0.0 for name in STACKED_LEFT}
+    for label, L, out_d, in_d, k, N in (("ragged", 3, 200, 300, 40, 5),
+                                        ("wq", 24, 896, 896, LLM_RANK, 2),
+                                        ("w_gate", 24, 4864, 896, LLM_RANK, 2)):
+        W, V, U, s, alpha, A, UT = inputs(L, out_d, in_d, k, N)
+        tag = f"{label} (L={L}, {out_d}x{in_d}, N={N}, k={k})"
+        G, Gr = kern.maecho_gram_left_stacked(A, UT), ref.maecho_gram_left_stacked_ref(A, UT)
+        e = (G - Gr).abs().max().item()
+        tol = GRAM_RTOL * Gr.abs().max().item()
+        print(f"[kernels] {tag} {g} max_abs_err {e:.3e} tol {tol:.3e}")
+        check(e <= tol, f"{g} disagrees at {tag}")
+        check(torch.equal(G, kern.maecho_gram_left_stacked(A, UT)),
+              f"{g} is not reproducible at {tag}")
+        err[g] = max(err[g], e)
+        Wn = kern.maecho_update_left_stacked(W, A, UT, alpha, eta)
+        e = (Wn - ref.maecho_update_left_stacked_ref(W, A, UT, alpha, eta)).abs().max().item()
+        print(f"[kernels] {tag} {u} max_abs_err {e:.3e} tol {APPLY_ATOL:.0e}")
+        check(e <= APPLY_ATOL, f"{u} disagrees at {tag}")
+        err[u] = max(err[u], e)
+        for norm in ((False, True) if label == "ragged" else (False,)):
+            Vn = kern.maecho_v_update_factored_stacked(Wn, V, U, s, frac, norm, UT=UT)
+            e = (Vn - ref.maecho_v_update_factored_stacked_ref(Wn, V, U, s, frac, norm)
+                 ).abs().max().item()
+            print(f"[kernels] {tag} {v} norm={norm} max_abs_err {e:.3e} "
+                  f"tol {APPLY_ATOL:.0e}")
+            check(e <= APPLY_ATOL, f"{v} (norm={norm}) disagrees at {tag}")
+            check((Vn - V).abs().max().item() > 0, f"{v} left V unchanged")
+            err[v] = max(err[v], e)
+        del W, V, U, A, UT
+    torch.cuda.synchronize()
+
+    # Bounds as for B2/B5/B8, times L (B11's by the cross-Gram identity).  B17 is timed as its kernel alone on
+    # the reference pallas_call's operands (B, Uᵀ, W', V), and as the
+    # wrapper the executor calls, which forms B with a torch GEMM first.
+    timings = {}
+    for label, L, out_d, in_d, k, N in (("wq", 24, 896, 896, LLM_RANK, 2),
+                                        ("w_gate", 24, 4864, 896, LLM_RANK, 2)):
+        W, V, U, s, alpha, A, UT = inputs(L, out_d, in_d, k, N)
+        Wn = kern.maecho_update_left_stacked(W, A, UT, alpha, eta)
+        B = kern.compressed_residual(Wn, V, U, s)
+        OI, OK, KI = L * out_d * in_d, L * out_d * k, L * k * in_d
+        gemm = 2.0 * N * OI * k
+        cases = {
+            g: (lambda: kern.maecho_gram_left_stacked(A, UT),
+                lambda: ref.maecho_gram_left_stacked_ref(A, UT),
+                L * gram_left_flops(N, out_d, in_d, k), 4.0 * (N * OK + N * KI + L * N * N)),
+            u: (lambda: kern.maecho_update_left_stacked(W, A, UT, alpha, eta),
+                lambda: ref.maecho_update_left_stacked_ref(W, A, UT, alpha, eta),
+                gemm + 2.0 * N * OI + 2.0 * OI, 4.0 * (2 * OI + N * OK + N * KI + L * N)),
+            v: (lambda: kern.maecho_v_update_left_stacked(B, UT, Wn, V, frac),
+                lambda: ref.maecho_v_update_left_stacked_ref(B, UT, Wn, V, frac),
+                gemm + 4.0 * N * OI, 4.0 * (N * OK + N * KI + OI + 2 * N * OI)),
+            f"{v} wrapper": (
+                lambda: kern.maecho_v_update_factored_stacked(Wn, V, U, s, frac, UT=UT),
+                lambda: ref.maecho_v_update_factored_stacked_ref(Wn, V, U, s, frac),
+                2 * gemm + N * OK + 5.0 * N * OI,
+                4.0 * (OI + 2 * N * OI + N * KI + N * L * k)),
+        }
+        time_cases(torch, label, cases, timings, 10)
+        del W, V, U, A, UT, B, Wn
+    return err, timings
+
+
+def residuals64(name: str, *args):
+    """Float64 residual stack of a Gram kernel's operands: (N, out, in),
+    or (N, L, out, in) for the stacked kernels."""
+    a = [x.double() for x in args]
+    if "left" in name:
+        return a[0] @ a[1]                                  # A @ UT
+    d = a[0][None] - a[1]                                   # W - V
+    if "diag" in name:
+        return d * (a[2][:, None, :] if d.dim() == 3 else a[2][:, :, None, :])
+    return d @ a[2]
+
+
+def gram64(R):
+    """(N, N) or (L, N, N) float64 Gram of :func:`residuals64`'s stack."""
+    Rf = R.reshape(R.shape[0], -1) if R.dim() == 3 else \
+        R.transpose(0, 1).reshape(R.shape[1], R.shape[0], -1)
+    return Rf @ Rf.transpose(-1, -2)
+
+
+def phase_many_clients(torch, kern, ref, timings):
+    """The six Gram kernels past 54 clients (client blocks of at most 27,
+    one CTA per tile and block pair) against their plain versions and a
+    float64 Gram on a W0-sized leaf (400 x 784; L = 2 for the stacked
+    ones; factored rank 78), bitwise reproducible, timed with their
+    plain versions at N = 4 and MANY_CLIENTS.  Returns {name: max
+    |kernel - plain|}."""
+    from repro_torch.kernels import build, maecho_gram
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    out_d, in_d, k, L = 400, 784, RANK, 2
+    err = {name: 0.0 for name in GRAMS}
+    for N in (4,) + MANY_CLIENTS:
+        W = torch.randn(L, out_d, in_d, device="cuda", generator=gen) * 0.1
+        V = W + torch.randn(N, L, out_d, in_d, device="cuda", generator=gen) * 0.05
+        U = torch.linalg.qr(torch.randn(N, L, in_d, in_d // 2, device="cuda",
+                                        generator=gen))[0]
+        P = (U @ U.transpose(-1, -2)).contiguous()
+        del U
+        Uf = torch.linalg.qr(torch.randn(N, L, in_d, k, device="cuda",
+                                         generator=gen))[0].contiguous()
+        s = torch.rand(N, L, k, device="cuda", generator=gen) * 0.9 + 0.1
+        p = torch.rand(N, L, in_d, device="cuda", generator=gen)
+        A = kern.compressed_residual(W, V, Uf, s)
+        UT = Uf.transpose(-1, -2).contiguous()
+        one = [x[:, 0].contiguous() for x in (V, P, A, UT, p)]
+        args = {"maecho_gram": (W[0].contiguous(), one[0], one[1]),
+                "maecho_gram_left": (one[2], one[3]),
+                "maecho_gram_diag": (W[0].contiguous(), one[0], one[4]),
+                "maecho_gram_stacked": (W, V, P),
+                "maecho_gram_left_stacked": (A, UT),
+                "maecho_gram_diag_stacked": (W, V, p)}
+        OI, II, NI = out_d * in_d, in_d * in_d, N * in_d
+        cost = {"maecho_gram": (2.0 * N * OI * in_d + N * OI + N * (N + 1) * OI,
+                                4.0 * (OI + N * OI + N * II + N * N)),
+                "maecho_gram_left": (gram_left_flops(N, out_d, in_d, k),
+                                     4.0 * (N * out_d * k + N * k * in_d + N * N)),
+                "maecho_gram_diag": (2.0 * N * OI + N * (N + 1) * OI,
+                                     4.0 * (OI + N * OI + NI + N * N))}
+        for name in GRAMS:
+            fn, plain = getattr(kern, name), getattr(ref, name + "_ref")
+            a = args[name]
+            G, Gr, G64 = fn(*a), plain(*a), gram64(residuals64(name, *a))
+            e = (G - Gr).abs().max().item()
+            tol = GRAM_RTOL * Gr.abs().max().item()
+            e64 = (G.double() - G64).abs().max().item()
+            p64 = (Gr.double() - G64).abs().max().item()
+            tol64 = GRAM_RTOL * G64.abs().max().item()
+            print(f"[c1] N={N} {name} ({out_d}x{in_d}{', L=2' if name.endswith('_stacked') else ''})"
+                  f" max_abs_err {e:.3e} tol {tol:.3e}; against float64: kernel {e64:.3e}, "
+                  f"plain {p64:.3e}, tol {tol64:.3e}")
+            check(e <= tol, f"{name} disagrees at N={N}")
+            check(e64 <= tol64, f"{name} disagrees with a float64 Gram at N={N}")
+            del G64
+            check(torch.equal(G, fn(*a)), f"{name} is not reproducible at N={N}")
+            err[name] = max(err[name], e)
+            fl, nb = cost[name.replace("_stacked", "")]
+            if name.endswith("_stacked"):               # each layer's work, L times
+                fl, nb = L * fl, L * nb
+            time_cases(torch, f"N{N}", {name: (lambda: fn(*a), lambda: plain(*a), fl, nb)},
+                       timings, 3 if N > 4 else 20)
+        del W, V, P, Uf, A, UT, p, one, args
+    ws = build.load("maecho_gram_stacked", maecho_gram._STACKED_SIGS)
+    n = MANY_CLIENTS[-1]
+    print(f"[c1] Gram workspace at N={n}, {out_d}x{in_d}: "
+          f"{4 * ws.maecho_gram_stacked_workspace_floats(n, 1, out_d, in_d) / 1e6:.3f} MB "
+          f"(L = 1), {4 * ws.maecho_gram_stacked_workspace_floats(n, L, out_d, in_d) / 1e6:.3f}"
+          f" MB (L = 2); at N=64, L = 1: "
+          f"{4 * ws.maecho_gram_stacked_workspace_floats(64, 1, out_d, in_d) / 1e6:.3f} MB")
+    torch.cuda.synchronize()
+    return err
+
+
+def phase_many_clients_mlp(torch, kern):
+    """A dense-projector MA-Echo aggregate of 64 synthetic clients at the
+    paper MLP's shapes (784-400-200-100-10; rank-in/2 projectors on every
+    "W", the scalar rule on every bias), backend="kernel" against
+    backend="oracle" at τ = TAU_CHECK."""
+    from repro_torch.core.maecho import MAEchoConfig, maecho_aggregate
+    from repro_torch.fl import models as pm
+
+    N = 64
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    base = pm.init(pm.MLP_SPEC, seed=3, device="cuda")
+    clients, projs = [], []
+    for _ in range(N):
+        clients.append([{key: x + 0.05 * torch.randn(x.shape, device="cuda", generator=gen)
+                         for key, x in lay.items()} for lay in base])
+        proj = []
+        for lay in base:
+            d = lay["W"].shape[1]
+            U = torch.linalg.qr(torch.randn(d, d // 2, device="cuda", generator=gen))[0]
+            proj.append({"W": (U @ U.T).contiguous(), "b": torch.ones((), device="cuda")})
+        projs.append(proj)
+
+    def run(tau, backend):
+        return maecho_aggregate(clients, projs, MAEchoConfig(tau=tau, eta=0.5, mu=20.0),
+                                backend=backend)
+
+    t0 = time.perf_counter()
+    r = aggregates(torch, kern, run, TAU_CHECK)
+    r["t"] = time.perf_counter() - t0
+    r["shapes"] = [tuple(lay["W"].shape) for lay in clients[0]]
+    return r
+
+
+def factor_llm_projections(torch, projs, k: int):
+    """Every dense (24, 896, 896) projector of an LLM silo factored layer
+    by layer with ``core.projections.factor_projection`` at rank k, as
+    {"U": (24, 896, k), "s": (24, k)}; leaves sharing one projector
+    (wq/wk/wv, w_gate/w_up) share its factors.  Others are kept."""
+    from repro_torch.core.projections import factor_projection
+    from repro_torch.utils import trees
+
+    done = {}
+
+    def fac(_, x):
+        if x.dim() != 3:
+            return x
+        if id(x) not in done:
+            parts = [factor_projection(x[l], k) for l in range(x.shape[0])]
+            done[id(x)] = {"U": torch.stack([q["U"] for q in parts]).contiguous(),
+                           "s": torch.stack([q["s"] for q in parts]).contiguous()}
+        return done[id(x)]
+
+    return trees.map_with_path(fac, projs)
+
+
+def phase_llm_factored_path(torch, kern, lm):
+    """The LLM path's two silos with their dense projectors factored at
+    rank LLM_RANK (the stacked factored route, B11/B14/B17): aggregate at
+    LLM_TAU (timed, launches counted, peak memory), kernel vs oracle at
+    TAU_CHECK, the aggregate's perplexities."""
+    from repro_torch.core.maecho import MAEchoConfig
+    from repro_torch.fl.llm_adapter import aggregate_llm
+    from repro_torch.utils import trees
+
+    cfg, silos = lm["cfg"], lm["silos"]
+    t0 = time.perf_counter()
+    projs = [factor_llm_projections(torch, p, LLM_RANK) for p in lm["projs"]]
+    torch.cuda.synchronize()
+    f = {"t_factor": time.perf_counter() - t0}
+    shapes = {p: tuple(x.shape) for p, x in trees.tree_paths(projs[0])}
+    print(f"[llm-factored] projector shapes {shapes}")
+    for leaf in ("wq", "wk", "wv", "w_gate", "w_up"):
+        check(shapes[f"layers.{leaf}.U"] == (24, 896, LLM_RANK)
+              and shapes[f"layers.{leaf}.s"] == (24, LLM_RANK),
+              f"factored LLM projector shapes {shapes}")
+
+    def run(tau, backend):
+        return aggregate_llm(cfg, silos, projs, MAEchoConfig(tau=tau, eta=0.5, mu=20.0),
+                             backend=backend)
+
+    f["before_gb"], f["before_gc_gb"] = allocated_gb(torch)
+    (agg, f["t_agg"], f["spans"]), f["launches"] = count_launches(
+        torch, kern, lambda: timed_calls(torch, lambda: run(LLM_TAU, "kernel")))
+    f["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    check(all(bool(torch.isfinite(x).all()) for _, x in trees.tree_paths(agg)),
+          "the factored LLM aggregate has non-finite values")
+    t1 = time.perf_counter()
+    f["diff"] = tree_max_diff(run(TAU_CHECK, "kernel"), run(TAU_CHECK, "oracle"))
+    torch.cuda.synchronize()
+    f["t_check"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    f["ppl"] = {"maecho_factored": llm_ppl(torch, lm["model"], cfg, agg)}
+    f["t_ppl"] = time.perf_counter() - t1
+    return f
+
+
+def phase_bench_stacked_agg(torch, kern):
+    """The reference's ``benchmarks/bench_stacked_agg.py`` factored case:
+    N = 4 clients of one (L, 512, 512) leaf with factored projectors of
+    rank 32 (s uniform in [0, 1)), MAEchoConfig(tau=2, eta=0.5,
+    qp_iters=60), at L = 2 and 16.  Kernel vs oracle within AGG_ATOL, and
+    one launch of each of B11/B14/B17 per leaf and outer iteration,
+    whatever L is.  Returns {L: (launches, max |dW|, wall s)}."""
+    from repro_torch.core.maecho import MAEchoConfig, maecho_aggregate
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    cfg = MAEchoConfig(tau=2, eta=0.5, qp_iters=60)
+    out = {}
+    for L in (2, 16):
+        clients = [{"W": torch.randn(L, 512, 512, device="cuda", generator=gen) * 0.3}
+                   for _ in range(4)]
+        projs = [{"W": {"U": torch.linalg.qr(torch.randn(L, 512, 32, device="cuda",
+                                                         generator=gen))[0].contiguous(),
+                        "s": torch.rand(L, 32, device="cuda", generator=gen)}}
+                 for _ in range(4)]
+
+        def run(backend):
+            return maecho_aggregate(clients, projs, cfg, stack_levels={"W": 1},
+                                    backend=backend)
+
+        t0 = time.perf_counter()
+        got, launches = count_launches(torch, kern, lambda: run("kernel"))
+        wall = time.perf_counter() - t0
+        diff = (got["W"] - run("oracle")["W"]).abs().max().item()
+        out[L] = (launches, diff, wall)
+    return out
+
+
+def allocated_gb(torch) -> tuple:
+    """Device memory allocated now, and after ``gc.collect()`` frees what
+    only reference cycles still hold (GB); then resets the peak."""
+    torch.cuda.synchronize()
+    now = torch.cuda.memory_allocated() / 1e9
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return now, torch.cuda.memory_allocated() / 1e9
+
+
+def llm_ppl(torch, model, cfg, params) -> list:
+    """exp(mean loss) over 5 batches of 8 x 64 tokens on domains 101 and 202."""
+    from repro_torch.data.synthetic import lm_token_batches
+
+    with torch.no_grad():
+        return [math.exp(sum(float(model.loss_fn(params, {k: torch.as_tensor(v, device="cuda")
+                                                           for k, v in b.items()}))
+                             for b in lm_token_batches(cfg.vocab, 8, 64, 5, seed=d)) / 5)
+                for d in (101, 202)]
+
+
 def tree_max_diff(a, b) -> float:
     from repro_torch.utils import trees
 
@@ -552,9 +928,7 @@ def phase_llm_path(torch, kern):
         return aggregate_llm(cfg, silos, projs, MAEchoConfig(tau=tau, eta=0.5, mu=20.0),
                              backend=backend)
 
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    r["before_gb"] = torch.cuda.memory_allocated() / 1e9
+    r["before_gb"], r["before_gc_gb"] = allocated_gb(torch)
     (agg, r["t_agg"], r["spans"]), r["launches"] = count_launches(
         torch, kern, lambda: timed_calls(torch, lambda: run(LLM_TAU, "kernel")))
     r["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
@@ -566,31 +940,30 @@ def phase_llm_path(torch, kern):
     r["t_check"] = time.perf_counter() - t1
 
     t1 = time.perf_counter()
-    r["ppl"] = {}
-    with torch.no_grad():
-        for name, p in (("silo0", silos[0]), ("silo1", silos[1]),
-                        ("fedavg", fedavg(silos)), ("maecho", agg)):
-            r["ppl"][name] = [math.exp(sum(float(model.loss_fn(p, on_card(b))) for b in
-                                           lm_token_batches(cfg.vocab, 8, 64, 5, seed=d))
-                                       / 5) for d in (101, 202)]
+    r["ppl"] = {name: llm_ppl(torch, model, cfg, p) for name, p in (
+        ("silo0", silos[0]), ("silo1", silos[1]), ("fedavg", fedavg(silos)), ("maecho", agg))}
     r["t_ppl"] = time.perf_counter() - t1
+    r.update(cfg=cfg, model=model, silos=silos, projs=projs)
     return r
 
 
-def check_llm_path(r: dict) -> None:
-    """The LLM path's launch contract: the dense stacked kernels on five
-    leaves, the diagonal stacked ones on two, the diagonal ones on the
-    embedding, each once per leaf and outer iteration; no other kernel."""
+def check_llm_path(r: dict, five=STACKED, path: str = "llm") -> None:
+    """The LLM path's launch contract: the stacked kernels of the five
+    projected leaves (``five``: dense B10/B13/B16 or factored
+    B11/B14/B17), the diagonal stacked ones on two, the diagonal ones on
+    the embedding, each once per leaf and outer iteration; no other
+    kernel."""
     launches = r["launches"]
-    print(f"[launches] llm path: {launches}")
-    want = {**{n: 5 * LLM_TAU for n in STACKED}, **{n: 2 * LLM_TAU for n in STACKED_DIAG},
+    print(f"[launches] {path} path: {launches}")
+    want = {**{n: 5 * LLM_TAU for n in five}, **{n: 2 * LLM_TAU for n in STACKED_DIAG},
             **{n: LLM_TAU for n in DIAG}}
     for name in KERNELS:
         check(launches[name] == want.get(name, 0), f"{name} ran {launches[name]} times "
-              f"on the llm path, expected {want.get(name, 0)}")
-    print(f"[check] llm: kernel-vs-oracle max |dW| over all leaves at tau={TAU_CHECK} "
+              f"on the {path} path, expected {want.get(name, 0)}")
+    print(f"[check] {path}: kernel-vs-oracle max |dW| over all leaves at tau={TAU_CHECK} "
           f"{r['diff']:.3e} tol {AGG_ATOL:.0e}")
-    check(r["diff"] <= AGG_ATOL, "llm kernel aggregate disagrees with the oracle aggregate")
+    check(r["diff"] <= AGG_ATOL, f"{path} kernel aggregate disagrees with the oracle "
+          f"aggregate")
 
 
 def count_launches(torch, kern, run):
@@ -864,7 +1237,11 @@ def main() -> None:
         maecho_v_update_stacked=maecho_v_update.maecho_v_update_stacked,
         maecho_gram_diag_stacked=maecho_gram.maecho_gram_diag_stacked,
         maecho_update_diag_stacked=maecho_update.maecho_update_diag_stacked,
-        maecho_v_update_diag_stacked=maecho_v_update.maecho_v_update_diag_stacked)
+        maecho_v_update_diag_stacked=maecho_v_update.maecho_v_update_diag_stacked,
+        maecho_gram_left_stacked=maecho_gram.maecho_gram_left_stacked,
+        maecho_update_left_stacked=maecho_update.maecho_update_left_stacked,
+        maecho_v_update_factored_stacked=maecho_v_update.maecho_v_update_factored_stacked,
+        maecho_v_update_left_stacked=maecho_v_update.maecho_v_update_left_stacked)
     kern.all = [getattr(kern, n) for n in KERNELS]
 
     smi = subprocess.run(
@@ -882,11 +1259,28 @@ def main() -> None:
 
     t0 = time.perf_counter()
     err, timings = phase_kernels(torch, kern, ref)
-    for phase in (phase_factored_kernels, phase_diag_kernels, phase_stacked_kernels):
+    for phase in (phase_factored_kernels, phase_diag_kernels, phase_stacked_kernels,
+                  phase_stacked_left_kernels):
         e, t = phase(torch, kern, ref)
         err.update(e)
         timings.update(t)
     print(f"[phase] kernels-vs-plain {time.perf_counter() - t0:.3f} s")
+
+    t0 = time.perf_counter()
+    c1_err = phase_many_clients(torch, kern, ref, timings)
+    for name in GRAMS:
+        print(f"[c1] {name} device ms by N (400x784; plain in brackets): " + ", ".join(
+            f"N={n} {timings[(name, f'N{n}')][0]:.4f} ({timings[(name, f'N{n}')][1]:.4f})"
+            for n in (4,) + MANY_CLIENTS) + f"; max_abs_err {c1_err[name]:.3e}")
+    print("[c1] B1/B2 (k=78)/B3 at W0, N=4, this run against run Q: " + ", ".join(
+        f"{n} {timings[(n, 'W0k78' if n == 'maecho_gram_left' else 'W0')][0]:.4f} vs "
+        f"{RUN_Q_MS[n]:.4f} ms" for n in RUN_Q_MS))
+    m64 = phase_many_clients_mlp(torch, kern)
+    print(f"[phase] many clients {time.perf_counter() - t0:.3f} s: the N=64 MLP aggregates "
+          f"(kernel, tau={TAU_CHECK}, timed, and oracle) {m64['t']:.3f} s, layers "
+          f"{m64['shapes']}")
+    report_split("the N=64 dense MLP kernel aggregate", m64["t_agg"], m64["spans"], DENSE)
+    check_path("mlp N=64", m64, DENSE, TAU_CHECK)
 
     def device_ms(names, label_suffix="", tau=TAU):
         return tau * sum(timings[(n, l + label_suffix)][0]
@@ -951,7 +1345,8 @@ def main() -> None:
     report_split("the LLM kernel aggregate", lm["t_agg"], lm["spans"],
                  STACKED + STACKED_DIAG + DIAG)
     print(f"[memory] llm: device memory allocated before the kernel aggregate (base "
-          f"model, both silos, their projectors) {lm['before_gb']:.3f} GB, peak in it "
+          f"model, both silos, their projectors) {lm['before_gb']:.3f} GB, "
+          f"{lm['before_gc_gb']:.3f} GB after gc.collect(), peak in it "
           f"{lm['peak_gb']:.3f} GB")
     print("[perplexity] llm (ppl@dom101, ppl@dom202; not checked beyond finite): "
           + ", ".join(f"{k} {a:.3f} {b:.3f}" for k, (a, b) in lm["ppl"].items()))
@@ -959,10 +1354,43 @@ def main() -> None:
           "an LLM perplexity is not finite")
     check_llm_path(lm)
 
+    t0 = time.perf_counter()
+    lf = phase_llm_factored_path(torch, kern, lm)
+    print(f"[phase] llm factored path {time.perf_counter() - t0:.3f} s: factor "
+          f"(k={LLM_RANK}, layer by layer) {lf['t_factor']:.3f} s, aggregate (kernel, "
+          f"tau={LLM_TAU}, timed) {lf['t_agg']:.3f} s, kernel and oracle aggregates "
+          f"(tau={TAU_CHECK}) {lf['t_check']:.3f} s, perplexities {lf['t_ppl']:.3f} s")
+    report_split(f"the factored (k={LLM_RANK}) LLM kernel aggregate", lf["t_agg"],
+                 lf["spans"], STACKED_LEFT + STACKED_DIAG + DIAG)
+    print(f"[memory] llm factored: device memory allocated before the kernel aggregate "
+          f"{lf['before_gb']:.3f} GB, {lf['before_gc_gb']:.3f} GB after gc.collect(), "
+          f"peak in it {lf['peak_gb']:.3f} GB (dense route: {lm['before_gc_gb']:.3f} and "
+          f"{lm['peak_gb']:.3f} GB)")
+    print("[perplexity] llm factored (ppl@dom101, ppl@dom202; not checked beyond finite): "
+          + ", ".join(f"{k} {a:.3f} {b:.3f}" for k, (a, b) in lf["ppl"].items()))
+    check(all(math.isfinite(x) for v in lf["ppl"].values() for x in v),
+          "a factored LLM perplexity is not finite")
+    check_llm_path(lf, STACKED_LEFT, "llm factored")
+    del lm["silos"], lm["projs"]
+
+    t0 = time.perf_counter()
+    bench = phase_bench_stacked_agg(torch, kern)
+    print(f"[phase] bench_stacked_agg case {time.perf_counter() - t0:.3f} s")
+    for L, (launches, diff, wall) in bench.items():
+        print(f"[launches] bench_stacked_agg L={L} (N=4, 512x512, k=32, tau=2): "
+              f"{launches}; kernel aggregate {wall:.3f} s; kernel-vs-oracle max |dW| "
+              f"{diff:.3e} tol {AGG_ATOL:.0e}")
+        for name in KERNELS:
+            want = 2 if name in STACKED_LEFT else 0
+            check(launches[name] == want, f"{name} ran {launches[name]} times in the "
+                  f"bench_stacked_agg case at L={L}, expected {want}")
+        check(diff <= AGG_ATOL, f"bench_stacked_agg kernel aggregate at L={L} disagrees "
+              f"with the oracle aggregate")
+
     source = {**{n: r for n in DENSE}, **{n: f for n in FACTORED}, **{n: sc for n in DIAG},
-              **{n: lm for n in STACKED + STACKED_DIAG}}
+              **{n: lm for n in STACKED + STACKED_DIAG}, **{n: lf for n in STACKED_LEFT}}
     label = {**{n: f"W0k{RANK}" for n in FACTORED}, **{n: "w_gate" for n in STACKED},
-             **{n: "w_down" for n in STACKED_DIAG}}
+             **{n: "w_down" for n in STACKED_DIAG}, **{n: "w_gate" for n in STACKED_LEFT}}
     rows = []
     for name in KERNELS:
         ms, plain, b, by = timings[(name, label.get(name, "W0"))]

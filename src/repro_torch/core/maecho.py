@@ -25,8 +25,8 @@ Backends (:func:`maecho_aggregate`'s ``backend``):
     hand-written kernels B1 (Gram), B4 (Eq. 7) and B7 (Eq. 11) for
     dense projectors, B2, B5 and B8 for factored ones, B3, B6 and B9
     for scalar and diagonal ones; on a leaf with leading stacked-layer
-    axes (``stack_levels``) their stacked twins B10/B13/B16 and
-    B12/B15/B18, one launch per leaf for all its layers.  Smaller
+    axes (``stack_levels``) their stacked twins B10/B13/B16, B11/B14/B17
+    and B12/B15/B18, one launch per leaf for all its layers.  Smaller
     leaves and 1-D biases run the oracle, batched over layer axes.
   - ``"auto"``: the same routing without fallback warnings.
 
@@ -263,7 +263,11 @@ def default_projections(client_weights: list[Pytree]) -> list[Pytree]:
 def init_global(client_weights: list[Pytree], how: str,
                 rng: Optional[int] = None) -> Pytree:
     """The starting point W⁽⁰⁾: ``average``, ``first``, or ``random``
-    (normal draws scaled by each leaf's std, seeded by ``rng``)."""
+    (normal draws scaled by each leaf's std, seeded by ``rng``).
+
+    ``random`` matches the reference's distribution but not its draws:
+    one ``torch.Generator`` feeds every leaf in turn, where the reference
+    splits a JAX key per leaf.  No parity test may use it."""
     n = len(client_weights)
     if how == "average":
         out = client_weights[0]

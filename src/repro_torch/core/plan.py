@@ -17,13 +17,13 @@ Routes in this port:
                factored ones, B3/B6/B9 for scalar and diagonal ones.
   ``stacked``  the same pipeline for a leaf with leading scan-layer
                axes, flattened into the kernel grid: B10/B13/B16 for
-               dense projectors, B12/B15/B18 for scalar and diagonal
-               ones — one launch each per leaf and outer iteration,
-               whatever the layer count.
+               dense projectors, B11/B14/B17 for factored ones,
+               B12/B15/B18 for scalar and diagonal ones — one launch
+               each per leaf and outer iteration, whatever the layer
+               count.
 
 The ``sharded`` / ``sharded2d`` backends (ROADMAP A11) raise
-``NotImplementedError``, and so does a factored stacked leaf on the
-``stacked`` route (its kernels B11/B14/B17 are ROADMAP A7).
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -120,12 +120,6 @@ def _plan_leaf(path: str, W, P, levels: int, convention: str,
         return LeafPlan(path, levels, "oracle", kind)
     out_d, in_d = kernel_dims(W, convention)
     if min(out_d, in_d) >= ops.DEFAULT_BLOCK:
-        if levels and kind == "factored":
-            raise NotImplementedError(
-                f"stacked leaf {path or '<leaf>'} has a factored projector: "
-                f"its kernels B11/B14/B17 (maecho_*_left_stacked, "
-                f"maecho_v_update_factored_stacked) are not ported yet "
-                f"(ROADMAP item A7)")
         return LeafPlan(path, levels, "stacked" if levels else "kernel",
                         kind, out_d, in_d)
     if backend != "auto":

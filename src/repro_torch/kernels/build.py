@@ -34,7 +34,8 @@ SOURCES = ("maecho_gram", "maecho_update", "maecho_v_update",
            "maecho_gram_diag", "maecho_update_diag", "maecho_v_update_diag",
            "maecho_gram_stacked", "maecho_update_stacked", "maecho_v_update_stacked",
            "maecho_gram_diag_stacked", "maecho_update_diag_stacked",
-           "maecho_v_update_diag_stacked")
+           "maecho_v_update_diag_stacked", "maecho_gram_left_stacked",
+           "maecho_update_left_stacked", "maecho_v_update_factored_stacked")
 
 _libs: dict[str, ctypes.CDLL] = {}
 
@@ -170,3 +171,28 @@ def stacked_dims(name: str, W, V, P, kind: str, alpha=None) -> tuple:
     require(ok, f"{name}: shapes {got} do not match {want}")
     require(N >= 1 and L >= 1, f"{name}: N={N} clients and L={L} layers, need >= 1")
     return N, L, out_d, in_d
+
+
+def stacked_left_dims(name: str, A, UT, W=None, V=None, alpha=None) -> tuple:
+    """Check a stacked factored leaf's shapes — the compressed residual
+    A (N, L, out, k), UT (N, L, k, in), and W (L, out, in), V
+    (N, L, out, in), alpha (L, N) where given — and return
+    ``(N, L, out, k, in)``.  L is bounded by the grid's 65 535."""
+    require(A.dim() == 4 and UT.dim() == 4,
+            f"{name}: A must be (N, L, out, k) and UT (N, L, k, in), got "
+            f"{tuple(A.shape)}, {tuple(UT.shape)}")
+    N, L, out_d, kd = A.shape
+    in_d = UT.shape[3]
+    ok = (tuple(UT.shape[:3]) == (N, L, kd)
+          and (W is None or tuple(W.shape) == (L, out_d, in_d))
+          and (V is None or tuple(V.shape) == (N, L, out_d, in_d))
+          and (alpha is None or tuple(alpha.shape) == (L, N)))
+    got = ", ".join(f"{k} {tuple(t.shape)}" for k, t in
+                    (("A", A), ("UT", UT), ("W", W), ("V", V), ("alpha", alpha))
+                    if t is not None)
+    require(ok, f"{name}: shapes {got} do not match A (N, L, out, k), "
+                f"UT (N, L, k, in), W (L, out, in), V (N, L, out, in), alpha (L, N)")
+    require(min(N, L, kd, out_d, in_d) >= 1,
+            f"{name}: N={N}, L={L}, k={kd}, out={out_d}, in={in_d}, need each >= 1")
+    require(L <= 65535, f"{name}: L={L} layers exceeds the grid's limit")
+    return N, L, out_d, kd, in_d

@@ -32,7 +32,7 @@ gram_diag_partial_kernel(const float* __restrict__ W, const float* __restrict__ 
                          int N, int L, int in_d, long long total) {
   __shared__ float R[kMaxClients][kChunk];
   __shared__ float acc[kMaxClients * kMaxClients];
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int tid = threadIdx.x;
   const int l = STACKED ? blockIdx.y : 0;
   const int NN = N * N;
   for (int q = tid; q < NN; q += NT) acc[q] = 0.f;
@@ -53,14 +53,8 @@ gram_diag_partial_kernel(const float* __restrict__ W, const float* __restrict__ 
       R[i][le] = live ? (w - V[il * total + e]) * p[il * in_d + c] : 0.f;
     }
     __syncthreads();
-    for (int q = warp; q < NN; q += NT / 32) {
-      const int i = q / N, j = q % N;
-      if (j < i) continue;                    // warp-uniform
-      float s = 0.f;
-      for (int k = lane; k < kChunk; k += 32) s = fmaf(R[i][k], R[j][k], s);
-      for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-      if (lane == 0) acc[q] += s;
-    }
+    contract_pairs(&R[0][0], kChunk, kChunk, N, 0, N, true,
+                   [&](int q, int, int, float s) { acc[q] += s; });
     __syncthreads();
   }
 
@@ -71,6 +65,66 @@ gram_diag_partial_kernel(const float* __restrict__ W, const float* __restrict__ 
   }
 }
 
+// Client blocks (N > kMaxClients; see ClientBlocks): CTA (x, l, q) walks
+// the chunks of CTA (x, l) above for the clients of block pair q only and
+// writes its (a, b) and (b, a) sub-blocks of CTA (x, l)'s partial (N, N).
+template <bool STACKED>
+__global__ void __launch_bounds__(NT)
+gram_diag_blocked_partial_kernel(const float* __restrict__ W,
+                                 const float* __restrict__ V,
+                                 const float* __restrict__ p,
+                                 float* __restrict__ partial, ClientBlocks cb, int L,
+                                 int in_d, long long total) {
+  __shared__ float R[kMaxClients][kChunk];
+  __shared__ float acc[kMaxClients * kMaxClients];
+  const int tid = threadIdx.x;
+  const int l = STACKED ? blockIdx.y : 0;
+  const int N = cb.N;
+  int a, b;
+  cb.pair(blockIdx.z, a, b);
+  const int ia = a * cb.bs, na = cb.size(a);
+  const int jb = b * cb.bs, ncols = cb.size(b);
+  const bool diag = a == b;
+  const int col0 = diag ? 0 : na;          // first staged row of block b
+  const int nres = diag ? na : na + ncols;
+  const int NP = na * ncols;
+  for (int q = tid; q < NP; q += NT) acc[q] = 0.f;
+  __syncthreads();
+
+  // staging: thread t owns element t % kChunk of the chunk for staged
+  // rows t / kChunk, t / kChunk + NT / kChunk, ... (coalesced rows of V_il)
+  const float* Wl = W + (size_t)l * total;
+  const int le = tid % kChunk, r0 = tid / kChunk;
+  const long long n_chunks = (total + kChunk - 1) / kChunk;
+  for (long long ch = blockIdx.x; ch < n_chunks; ch += gridDim.x) {
+    const long long e = ch * kChunk + le;
+    const bool live = e < total;
+    const float w = live ? Wl[e] : 0.f;
+    const int c = live ? (int)(e % in_d) : 0;
+    for (int r = r0; r < nres; r += NT / kChunk) {
+      const int i = r < na ? ia + r : jb + (r - na);
+      const size_t il = STACKED ? (size_t)i * L + l : i;
+      R[r][le] = live ? (w - V[il * total + e]) * p[il * in_d + c] : 0.f;
+    }
+    __syncthreads();
+    contract_pairs(&R[0][0], kChunk, kChunk, na, col0, ncols, diag,
+                   [&](int q, int, int, float s) { acc[q] += s; });
+    __syncthreads();
+  }
+
+  float* out = partial + ((size_t)l * gridDim.x + blockIdx.x) * N * N;
+  for (int q = tid; q < NP; q += NT) {
+    const int r = q / ncols, cc = q % ncols;
+    const int i = ia + r, j = jb + cc;
+    if (diag) {
+      out[i * N + j] = r <= cc ? acc[q] : acc[cc * ncols + r];
+    } else {
+      out[i * N + j] = acc[q];
+      out[j * N + i] = acc[q];
+    }
+  }
+}
+
 inline long long gram_diag_workspace_floats(int N, int out_d, int in_d, int L) {
   return (long long)L * gram_diag_ctas((long long)out_d * in_d) * N * N;
 }
@@ -78,16 +132,25 @@ inline long long gram_diag_workspace_floats(int N, int out_d, int in_d, int L) {
 inline int gram_diag_launch(const void* W, const void* V, const void* p,
                             void* workspace, void* G, int N, int L, int out_d,
                             int in_d, void* stream) {
-  if (N < 1 || N > kMaxClients || L < 1 || L > 65535 || out_d < 1 || in_d < 1)
+  if (N < 1 || N > 46340 || L < 1 || L > 65535 || out_d < 1 || in_d < 1)
     return (int)cudaErrorInvalidValue;
+  const ClientBlocks cb = client_blocks(N);
+  if (cb.pairs > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long total = (long long)out_d * in_d;
   const int ctas = gram_diag_ctas(total);
   float* ws = static_cast<float*>(workspace);
-  auto kernel = L == 1 ? gram_diag_partial_kernel<false> : gram_diag_partial_kernel<true>;
-  kernel<<<dim3(ctas, L), NT, 0, s>>>(
-      static_cast<const float*>(W), static_cast<const float*>(V),
-      static_cast<const float*>(p), ws, N, L, in_d, total);
+  const float* w = static_cast<const float*>(W);
+  const float* v = static_cast<const float*>(V);
+  const float* pp = static_cast<const float*>(p);
+  if (cb.nb == 1) {
+    auto kernel = L == 1 ? gram_diag_partial_kernel<false> : gram_diag_partial_kernel<true>;
+    kernel<<<dim3(ctas, L), NT, 0, s>>>(w, v, pp, ws, N, L, in_d, total);
+  } else {
+    auto kernel = L == 1 ? gram_diag_blocked_partial_kernel<false>
+                         : gram_diag_blocked_partial_kernel<true>;
+    kernel<<<dim3(ctas, L, cb.pairs), NT, 0, s>>>(w, v, pp, ws, cb, L, in_d, total);
+  }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int NN = N * N;

@@ -5,8 +5,8 @@
 //     G[i, j] = <R_i, R_j>,   R_i = (W - V_i) P_i
 // with W (out, in), V (N, out, in), P (N, in, in), all fp32, fp32
 // accumulation (no TF32).  Design (per-tile partial Grams parked in
-// shared memory, a fixed-order second-pass reduce, N <= 54) in
-// maecho_tile.cuh.
+// shared memory, client blocks above 54 clients, a fixed-order
+// second-pass reduce) in maecho_tile.cuh.
 //
 // Bound.  2*N*out*in^2 FMA-flops for the residual GEMM chain against
 // ~4*(N*in^2 + N*out*in) bytes read: at the paper MLP's W0 (400x784,
@@ -20,8 +20,6 @@ extern "C" {
 long long maecho_gram_workspace_floats(int N, int out_d, int in_d) {
   return gram_workspace_floats(N, out_d, in_d);
 }
-
-int maecho_gram_max_clients() { return kMaxClients; }
 
 int maecho_gram_launch(const void* W, const void* V, const void* P,
                        void* workspace, void* G, int N, int out_d, int in_d,

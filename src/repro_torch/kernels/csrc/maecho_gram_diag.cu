@@ -11,8 +11,10 @@
 // The leaf is walked as one flat array of out*in elements in chunks of
 // kChunk; CTA b takes chunks b, b + gridDim.x, ...  Per chunk the CTA
 // stages the N residual rows (N x kChunk floats, 27 KiB at N = 54, so
-// static shared memory under the 48 KiB default suffices), then one warp
-// per (i <= j) pair contracts them (lanes stride the chunk, fixed
+// static shared memory under the 48 KiB default suffices; above 54
+// clients a CTA stages the rows of one pair of client blocks of at most
+// 27, maecho_tile.cuh's ClientBlocks, with the pair on grid z), then one
+// warp per (i <= j) pair contracts them (lanes stride the chunk, fixed
 // butterfly) and adds the sum into the CTA's (N, N) accumulator in
 // shared memory.  A pair always belongs to the same warp, so there are
 // no atomics.  Each CTA writes its partial (N, N) and the shared
@@ -32,8 +34,6 @@ extern "C" {
 long long maecho_gram_diag_workspace_floats(int N, int out_d, int in_d) {
   return gram_diag_workspace_floats(N, out_d, in_d, 1);
 }
-
-int maecho_gram_diag_max_clients() { return kMaxClients; }
 
 int maecho_gram_diag_launch(const void* W, const void* V, const void* p,
                             void* workspace, void* G, int N, int out_d, int in_d,

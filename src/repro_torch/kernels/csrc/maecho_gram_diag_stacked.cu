@@ -13,7 +13,7 @@
 // up to 264 CTAs per layer walk the layer's flat leaf in 128-element
 // chunks, one warp per (i <= j) pair accumulating into a per-CTA (N, N);
 // the fixed-order reduce sums each layer's partials in CTA order, so G
-// is bitwise reproducible.  N <= 54.
+// is bitwise reproducible.  Any N (client blocks above 54).
 //
 // Bound.  4*L*(out*in*(N+1) + N*in) bytes against ~(N+1)*N*L*out*in
 // flops: at Qwen2-0.5B's w_down (L=24, 896x4864 in kernel layout, N=2)
@@ -27,8 +27,6 @@ long long maecho_gram_diag_stacked_workspace_floats(int N, int L, int out_d,
                                                     int in_d) {
   return gram_diag_workspace_floats(N, out_d, in_d, L);
 }
-
-int maecho_gram_diag_stacked_max_clients() { return kMaxClients; }
 
 int maecho_gram_diag_stacked_launch(const void* W, const void* V, const void* p,
                                     void* workspace, void* G, int N, int L,

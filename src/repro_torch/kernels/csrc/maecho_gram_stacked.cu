@@ -11,7 +11,8 @@
 // each CTA parks the N residual tiles of its (layer, 32x32 tile) in
 // shared memory and writes its partial (N, N); the fixed-order reduce
 // then sums each layer's partials in tile order, so every layer's Gram
-// (and the QP's alpha) is bitwise reproducible.  N <= 54, L <= 65535.
+// (and the QP's alpha) is bitwise reproducible.  Any N (client blocks
+// above 54 share grid z with the layer), L * block pairs <= 65535.
 //
 // Bound.  2*N*L*out*in^2 flops against ~4*L*(out*in*(N+1) + N*in^2) bytes:
 // at Qwen2-0.5B's wq (L=24, 896x896, N=2) 69.1 GFLOP on 0.39 GB, bound
@@ -25,8 +26,6 @@ extern "C" {
 long long maecho_gram_stacked_workspace_floats(int N, int L, int out_d, int in_d) {
   return gram_workspace_floats(N, out_d, in_d, L);
 }
-
-int maecho_gram_stacked_max_clients() { return kMaxClients; }
 
 int maecho_gram_stacked_launch(const void* W, const void* V, const void* P,
                                void* workspace, void* G, int N, int L, int out_d,

@@ -1,20 +1,22 @@
 // Shared tile machinery of the MA-Echo kernels for Hopper (sm_90a):
 // B1/B2 (Eq. 6 Gram), B4/B5 (Eq. 7 update) and B7/B8 (Eq. 11 update),
-// and the stacked twins B10/B13/B16 of B1/B4/B7.  The elementwise
-// diagonal kernels (maecho_diag.cuh) use only its constants and the
-// fixed-order gram_reduce_kernel.
+// and the stacked twins B10/B13/B16 of B1/B4/B7 and B11/B14/B17 of
+// B2/B5/B8.  The elementwise diagonal kernels (maecho_diag.cuh) use only
+// its constants, the client blocking and the fixed-order
+// gram_reduce_kernel.
 //
 // Layer axis.  Every launch covers L scan-stacked layers at once
 // (L = 1 for an unstacked leaf): W (L, out, in), V (N, L, out, in),
 // P (N, L, in, in), alpha (L, N), G (L, N, N).  The grid's z axis
 // carries the layer (Gram, Eq. 7) or the (layer, client) pair
 // z = l*N + i (Eq. 11), and every offset is 64-bit.  A stacked operand
-// (StackedDenseOp) has kStacked = true and a layer(l) that shifts its
-// base pointers to layer l; the unstacked operands (DenseOp, LeftOp)
-// have kStacked = false, their kernels fold the layer arithmetic away
-// and read the operand straight from kernel-parameter space, so B1-B8
-// compile as they did before the layer axis existed (a shifted copy of
-// the operand in registers had cost them 4-28 % at the MLP's leaves).
+// (StackedDenseOp, StackedLeftOp) has kStacked = true and a layer(l)
+// that shifts its base pointers to layer l; the unstacked operands
+// (DenseOp, LeftOp) have kStacked = false, their kernels fold the layer
+// arithmetic away and read the operand straight from kernel-parameter
+// space, so B1-B8 compile as they did before the layer axis existed (a
+// shifted copy of the operand in registers had cost them 4-28 % at the
+// MLP's leaves).
 //
 // Each of them forms, for one client i and one 32x32 (out, in) tile, a
 // residual tile
@@ -33,11 +35,20 @@
 //
 // The TPU grids ran in order and carried sums across grid steps; Hopper
 // runs blocks in no order.  So:
-//   - Gram: each CTA parks all N residual tiles in shared memory (N*4 KiB,
-//     N <= kMaxClients = 54 within the 227 KiB a block may use), writes
-//     its partial (N, N) to a workspace, and a second launch sums the
-//     partials in tile order: no atomics, so G (and the QP's alpha) is
-//     bitwise reproducible.
+//   - Gram: each CTA parks residual tiles in shared memory (4 KiB a
+//     client), writes its part of the tile's partial (N, N) to a
+//     workspace, and a second launch sums the partials in tile order: no
+//     atomics, so G (and the QP's alpha) is bitwise reproducible.  Up to
+//     kMaxClients = 54 clients fit the 227 KiB a block may use, and one
+//     CTA per tile parks them all.  Above that the client axis is cut
+//     into blocks of at most kBlockClients = 27 (ClientBlocks), and one
+//     CTA per tile and pair (a <= b) of blocks parks those two blocks
+//     only and writes the (a, b) and (b, a) sub-blocks of the partial;
+//     the pair rides grid z beside the layer.  Each entry of G is still
+//     one dot product over the same tile in the same order.  The blocked
+//     launch is a kernel of its own: up to 54 clients the launch is the
+//     kernel without blocks (on an H100 the pair bookkeeping had cost B10
+//     19 % at N = 2 through register pressure, 5 % as a template flag).
 //   - Eq. 7: the client sum is a loop inside the CTA; alpha is read from
 //     device memory (no host sync).
 //   - Eq. 11: one CTA per (client, tile).  The optional row norm needed
@@ -53,9 +64,37 @@ namespace {
 
 constexpr int T = 32;          // tile edge: out rows, in columns, depth
 constexpr int NT = 256;        // threads per CTA; each owns a 2x2 micro-tile
-constexpr int kMaxClients = 54;
+constexpr int kMaxClients = 54;      // clients one Gram CTA can park
+constexpr int kBlockClients = 27;    // block size above that: two blocks fit
 
 inline int tiles(int d) { return (d + T - 1) / T; }
+
+// The client axis of a Gram launch cut into nb blocks of bs clients (the
+// last may be short): one block of all N when N <= kMaxClients, else
+// ceil(N / 27) blocks of near-equal size.  A CTA takes one pair (a <= b)
+// of blocks, numbered row by row: pairs = nb (nb + 1) / 2.
+struct ClientBlocks {
+  int N, bs, nb, pairs;
+  __host__ __device__ int parked() const { return nb == 1 ? N : 2 * bs; }
+  // pair index -> (a, b), a <= b
+  __device__ __forceinline__ void pair(int q, int& a, int& b) const {
+    a = 0;
+    while (q >= nb - a) {
+      q -= nb - a;
+      ++a;
+    }
+    b = a + q;
+  }
+  __device__ __forceinline__ int size(int a) const { return min(bs, N - a * bs); }
+};
+
+inline ClientBlocks client_blocks(int N) {
+  if (N <= kMaxClients) return ClientBlocks{N, N, 1, 1};
+  const int nb = (N + kBlockClients - 1) / kBlockClients;
+  const int bs = (N + nb - 1) / nb;
+  const int n_blocks = (N + bs - 1) / bs;
+  return ClientBlocks{N, bs, n_blocks, n_blocks * (n_blocks + 1) / 2};
+}
 
 struct Stage {                 // one K-step's operand tiles
   float a[T][T + 1];
@@ -104,10 +143,44 @@ __device__ __forceinline__ void layer_residual_tile(const Op& op, int l, int i, 
 
 // ---------------------------------------------------------------- Gram
 
-constexpr size_t gram_smem_bytes(int n) {
-  return sizeof(float) * (size_t)n * T * T + sizeof(Stage);
+constexpr size_t gram_smem_bytes(int parked) {
+  return sizeof(float) * (size_t)parked * T * T + sizeof(Stage);
 }
 
+// Parks this thread's 2x2 micro-tile r of a residual tile in Ri (T x T).
+__device__ __forceinline__ void park_tile(float* Ri, const float r[2][2]) {
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  Ri[ty * T + tx] = r[0][0];
+  Ri[ty * T + tx + 16] = r[0][1];
+  Ri[(ty + 16) * T + tx] = r[1][0];
+  Ri[(ty + 16) * T + tx + 16] = r[1][1];
+}
+
+// The pair contraction of every Gram kernel (here and maecho_diag.cuh):
+// one warp per pair q = r * nc + c of staged rows r < nr and col0 + c,
+// c < nc (only c >= r when both are one block), each a dot over n floats
+// of rows ld floats apart.  Lanes stride the rows and a fixed butterfly
+// sums them, so the order is deterministic; lane 0 hands (q, r, c, sum)
+// to put.
+template <class Put>
+__device__ __forceinline__ void contract_pairs(const float* rows, int ld, int n, int nr,
+                                               int col0, int nc, bool same, Put put) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int q = warp; q < nr * nc; q += NT / 32) {
+    const int r = q / nc, c = q % nc;
+    if (same && c < r) continue;              // warp-uniform
+    const float* Ri = rows + (size_t)r * ld;
+    const float* Rj = rows + (size_t)(col0 + c) * ld;
+    float s = 0.f;
+    for (int e = lane; e < n; e += 32) s = fmaf(Ri[e], Rj[e], s);
+    for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+    if (lane == 0) put(q, r, c, s);
+  }
+}
+
+// One block of all N clients: one CTA per (32x32 tile, layer), z = l.
+// Parks the N residual tiles, then one warp per (i <= j) pair contracts
+// two of them (contract_pairs).
 template <class Op>
 __global__ void __launch_bounds__(NT)
 gram_partial_kernel(Op op, float* __restrict__ partial, int N, int out_d, int in_d) {
@@ -115,38 +188,61 @@ gram_partial_kernel(Op op, float* __restrict__ partial, int N, int out_d, int in
   float* rstore = smem;                                  // N x T x T
   Stage& st = *reinterpret_cast<Stage*>(smem + (size_t)N * T * T);
   const int o0 = blockIdx.y * T, c0 = blockIdx.x * T;
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const int l = Op::kStacked ? blockIdx.z : 0;
 
   for (int i = 0; i < N; ++i) {
     float r[2][2];
     layer_residual_tile(op, l, i, o0, c0, out_d, in_d, st, r);
-    float* Ri = rstore + (size_t)i * T * T;
-    Ri[ty * T + tx] = r[0][0];
-    Ri[ty * T + tx + 16] = r[0][1];
-    Ri[(ty + 16) * T + tx] = r[1][0];
-    Ri[(ty + 16) * T + tx + 16] = r[1][1];
+    park_tile(rstore + (size_t)i * T * T, r);
   }
   __syncthreads();
 
-  // pair contraction: one warp per (i <= j) pair, lanes stride the tile,
-  // a fixed butterfly reduction keeps the sum order deterministic
-  const int warp = tid / 32, lane = tid % 32;
   const size_t tile = ((size_t)l * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
   float* out = partial + tile * N * N;
-  for (int p = warp; p < N * N; p += NT / 32) {
-    const int i = p / N, j = p % N;
-    if (j < i) continue;                      // warp-uniform
-    const float* Ri = rstore + (size_t)i * T * T;
-    const float* Rj = rstore + (size_t)j * T * T;
-    float s = 0.f;
-    for (int e = lane; e < T * T; e += 32) s = fmaf(Ri[e], Rj[e], s);
-    for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-    if (lane == 0) {
-      out[i * N + j] = s;
-      out[j * N + i] = s;
-    }
+  contract_pairs(rstore, T * T, T * T, N, 0, N, true, [&](int, int i, int j, float s) {
+    out[i * N + j] = s;
+    out[j * N + i] = s;
+  });
+}
+
+// Client blocks (N > kMaxClients): one CTA per (tile, layer and block
+// pair), z = l * pairs + q.  As gram_partial_kernel, on the residual
+// tiles of blocks a and b only (a alone when a == b; i <= j inside it),
+// writing the (a, b) and (b, a) sub-blocks of the tile's partial.
+template <class Op>
+__global__ void __launch_bounds__(NT)
+gram_blocked_partial_kernel(Op op, float* __restrict__ partial, ClientBlocks cb,
+                            int out_d, int in_d) {
+  extern __shared__ float smem[];
+  const int N = cb.N;
+  const int l = Op::kStacked ? blockIdx.z / cb.pairs : 0;
+  int a, b;
+  cb.pair(blockIdx.z - l * cb.pairs, a, b);
+  const int ia = a * cb.bs, na = cb.size(a);
+  const int jb = b * cb.bs, ncols = cb.size(b);
+  const bool diag = a == b;
+  const int col0 = diag ? 0 : na;          // first parked tile of block b
+  const int nres = diag ? na : na + ncols;
+  float* rstore = smem;                                  // nres x T x T
+  Stage& st = *reinterpret_cast<Stage*>(smem + (size_t)cb.parked() * T * T);
+  const int o0 = blockIdx.y * T, c0 = blockIdx.x * T;
+
+  for (int r = 0; r < nres; ++r) {
+    float t[2][2];
+    const int i = r < na ? ia + r : jb + (r - na);
+    layer_residual_tile(op, l, i, o0, c0, out_d, in_d, st, t);
+    park_tile(rstore + (size_t)r * T * T, t);
   }
+  __syncthreads();
+
+  const size_t tile = ((size_t)l * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
+  float* out = partial + tile * N * N;
+  contract_pairs(rstore, T * T, T * T, na, col0, ncols, diag,
+                 [&](int, int r, int c, float s) {
+                   const int i = ia + r, j = jb + c;
+                   out[i * N + j] = s;
+                   out[j * N + i] = s;
+                 });
 }
 
 // G[l][e] = sum over layer l's tiles of partial[l][t][e], tiles in index
@@ -173,17 +269,24 @@ inline long long gram_workspace_floats(int N, int out_d, int in_d, int L = 1) {
 template <class Op>
 int gram_launch(const Op& op, void* workspace, void* G, int N, int out_d,
                 int in_d, void* stream, int L = 1) {
-  if (N < 1 || N > kMaxClients || out_d < 1 || in_d < 1 || op.depth < 1 ||
-      L < 1 || L > (Op::kStacked ? 65535 : 1))
+  if (N < 1 || N > 46340 || out_d < 1 || in_d < 1 || op.depth < 1 || L < 1 ||
+      L > (Op::kStacked ? 65535 : 1))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = gram_smem_bytes(N);
-  cudaError_t err = cudaFuncSetAttribute(
-      gram_partial_kernel<Op>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const ClientBlocks cb = client_blocks(N);
+  if ((long long)L * cb.pairs > 65535) return (int)cudaErrorInvalidValue;
+  const int smem = (int)gram_smem_bytes(cb.parked());
+  const auto attr = cudaFuncAttributeMaxDynamicSharedMemorySize;
+  cudaError_t err = cb.nb == 1
+                        ? cudaFuncSetAttribute(gram_partial_kernel<Op>, attr, smem)
+                        : cudaFuncSetAttribute(gram_blocked_partial_kernel<Op>, attr, smem);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(tiles(in_d), tiles(out_d), L);
-  gram_partial_kernel<Op><<<grid, NT, smem, s>>>(
-      op, static_cast<float*>(workspace), N, out_d, in_d);
+  const dim3 grid(tiles(in_d), tiles(out_d), L * cb.pairs);
+  float* ws = static_cast<float*>(workspace);
+  if (cb.nb == 1)
+    gram_partial_kernel<Op><<<grid, NT, smem, s>>>(op, ws, N, out_d, in_d);
+  else
+    gram_blocked_partial_kernel<Op><<<grid, NT, smem, s>>>(op, ws, cb, out_d, in_d);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int NN = N * N;
@@ -425,6 +528,36 @@ struct LeftOp {
 inline LeftOp left_op(const void* A, const void* UT, int out_d, int in_d, int rank) {
   return LeftOp{static_cast<const float*>(A), static_cast<const float*>(UT),
                 out_d, in_d, rank};
+}
+
+// The factored projector of a stacked leaf: layer 0 of A (N, L, out, rank)
+// and UT (N, L, rank, in); layer(l) moves the bases to layer l.
+struct StackedLeftOp {
+  static constexpr bool kStacked = true;
+  const float* A;
+  const float* UT;
+  int out_d, in_d;
+  size_t astride, ustride;     // client strides of A and UT: L*out*rank, L*rank*in
+  int depth;                   // the rank
+  __device__ __forceinline__ float left(int i, int o, int k) const {
+    return A[i * astride + (size_t)o * depth + k];
+  }
+  __device__ __forceinline__ float right(int i, int k, int c) const {
+    return UT[i * ustride + (size_t)k * in_d + c];
+  }
+  __device__ __forceinline__ StackedLeftOp layer(int l) const {
+    StackedLeftOp op = *this;
+    op.A += (size_t)l * out_d * depth;
+    op.UT += (size_t)l * depth * in_d;
+    return op;
+  }
+};
+
+inline StackedLeftOp stacked_left_op(const void* A, const void* UT, int out_d,
+                                     int in_d, int rank, int L) {
+  return StackedLeftOp{static_cast<const float*>(A), static_cast<const float*>(UT),
+                       out_d, in_d, (size_t)L * out_d * rank,
+                       (size_t)L * rank * in_d, rank};
 }
 
 }  // namespace

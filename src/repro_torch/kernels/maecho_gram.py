@@ -5,10 +5,16 @@ Pᵢ = Uᵢ·diag(sᵢ)·Uᵢᵀ (Rᵢ = Aᵢ @ UTᵢ, ``csrc/maecho_gram_left.c
 of ``maecho_gram_left``), plus the compressed residual A both factored
 passes start from; and B3 for diagonal Pᵢ = diag(pᵢ) (Rᵢ = (W − Vᵢ)·pᵢ,
 ``csrc/maecho_gram_diag.cu``, port of ``maecho_gram_diag``); and the
-stacked twins of B1 and B3 for scan-stacked leaves, one launch for all
-layers: B10 (``csrc/maecho_gram_stacked.cu``, port of
-``maecho_gram_stacked``) and B12 (``csrc/maecho_gram_diag_stacked.cu``,
-port of ``maecho_gram_diag_stacked``).
+stacked twins of B1, B2 and B3 for scan-stacked leaves, one launch for
+all layers: B10 (``csrc/maecho_gram_stacked.cu``, port of
+``maecho_gram_stacked``), B11 (``csrc/maecho_gram_left_stacked.cu``, port
+of ``maecho_gram_left_stacked``) and B12
+(``csrc/maecho_gram_diag_stacked.cu``, port of
+``maecho_gram_diag_stacked``).
+
+Every Gram kernel takes any number of clients N: up to 54 one CTA per
+tile parks them all, above that the client axis is cut into blocks of at
+most 27 and one CTA takes each pair of blocks (``csrc/maecho_tile.cuh``).
 
 On a CUDA tensor a wrapper launches its kernel (or raises); on a CPU
 tensor it runs the plain version in ``ref``.
@@ -23,7 +29,6 @@ from repro_torch.kernels import build, ref
 
 _SIGS = {
     "maecho_gram_workspace_floats": (ctypes.c_longlong, [ctypes.c_int] * 3),
-    "maecho_gram_max_clients": (ctypes.c_int, []),
     "maecho_gram_launch": (ctypes.c_int, [ctypes.c_void_p] * 5
                            + [ctypes.c_int] * 3 + [ctypes.c_void_p]),
 }
@@ -31,8 +36,8 @@ _SIGS = {
 
 def maecho_gram(W, V, P):
     """W (out, in), V (N, out, in), P (N, in, in) float32 → the fp32
-    (N, N) Gram.  Any out/in (ragged edges are masked in the kernel);
-    N up to the kernel's shared-memory cap (54)."""
+    (N, N) Gram.  Any out/in (ragged edges are masked in the kernel)
+    and any N."""
     if W.device.type == "cpu":
         return ref.maecho_gram_ref(W, V, P)
     build.check_f32_cuda("maecho_gram", W=W, V=V, P=P)
@@ -41,9 +46,8 @@ def maecho_gram(W, V, P):
     build.require(tuple(W.shape) == (out_d, in_d) and tuple(P.shape) == (N, in_d, in_d),
                   f"maecho_gram: shapes W {tuple(W.shape)}, V {tuple(V.shape)}, "
                   f"P {tuple(P.shape)} do not match (out, in), (N, out, in), (N, in, in)")
+    build.require(N >= 1, f"maecho_gram: N={N} clients, need at least 1")
     lib = build.load("maecho_gram", _SIGS)
-    build.require(1 <= N <= lib.maecho_gram_max_clients(),
-                  f"maecho_gram: N={N} clients outside 1..{lib.maecho_gram_max_clients()}")
     ws = torch.empty(lib.maecho_gram_workspace_floats(N, out_d, in_d),
                      dtype=torch.float32, device=W.device)
     G = torch.empty((N, N), dtype=torch.float32, device=W.device)
@@ -65,7 +69,6 @@ compressed_residual = ref.compressed_residual_ref
 
 _LEFT_SIGS = {
     "maecho_gram_left_workspace_floats": (ctypes.c_longlong, [ctypes.c_int] * 3),
-    "maecho_gram_left_max_clients": (ctypes.c_int, []),
     "maecho_gram_left_launch": (ctypes.c_int, [ctypes.c_void_p] * 4
                                 + [ctypes.c_int] * 4 + [ctypes.c_void_p]),
 }
@@ -75,8 +78,7 @@ def maecho_gram_left(A, UT):
     """B2, the wrapper of ``csrc/maecho_gram_left.cu`` (port of
     ``repro/kernels/maecho_gram.py::maecho_gram_left``): the (N, N)
     Gram of Rᵢ = Aᵢ @ UTᵢ from A (N, out, k) and UT (N, k, in) float32.
-    Any out/in/k (ragged edges are masked in the kernel); N up to the
-    kernel's shared-memory cap (54)."""
+    Any out/in/k (ragged edges are masked in the kernel) and any N."""
     if A.device.type == "cpu":
         return ref.maecho_gram_left_ref(A, UT)
     build.check_f32_cuda("maecho_gram_left", A=A, UT=UT)
@@ -86,10 +88,8 @@ def maecho_gram_left(A, UT):
                   f"maecho_gram_left: shapes A {tuple(A.shape)}, UT {tuple(UT.shape)} "
                   f"do not match (N, out, k), (N, k, in)")
     in_d = UT.shape[2]
+    build.require(N >= 1, f"maecho_gram_left: N={N} clients, need at least 1")
     lib = build.load("maecho_gram_left", _LEFT_SIGS)
-    build.require(1 <= N <= lib.maecho_gram_left_max_clients(),
-                  f"maecho_gram_left: N={N} clients outside "
-                  f"1..{lib.maecho_gram_left_max_clients()}")
     ws = torch.empty(lib.maecho_gram_left_workspace_floats(N, out_d, in_d),
                      dtype=torch.float32, device=A.device)
     G = torch.empty((N, N), dtype=torch.float32, device=A.device)
@@ -105,7 +105,6 @@ maecho_gram_left.launches = 0
 
 _DIAG_SIGS = {
     "maecho_gram_diag_workspace_floats": (ctypes.c_longlong, [ctypes.c_int] * 3),
-    "maecho_gram_diag_max_clients": (ctypes.c_int, []),
     "maecho_gram_diag_launch": (ctypes.c_int, [ctypes.c_void_p] * 5
                                 + [ctypes.c_int] * 3 + [ctypes.c_void_p]),
 }
@@ -115,8 +114,7 @@ def maecho_gram_diag(W, V, p):
     """B3, the wrapper of ``csrc/maecho_gram_diag.cu`` (port of
     ``repro/kernels/maecho_gram.py::maecho_gram_diag``): the (N, N)
     Gram of Rᵢ = (W − Vᵢ)·pᵢ from W (out, in), V (N, out, in) and the
-    diagonals p (N, in) float32.  Any out/in; N up to the kernel's
-    shared-memory cap (54)."""
+    diagonals p (N, in) float32.  Any out/in and any N."""
     if W.device.type == "cpu":
         return ref.maecho_gram_diag_ref(W, V, p)
     build.check_f32_cuda("maecho_gram_diag", W=W, V=V, p=p)
@@ -125,10 +123,8 @@ def maecho_gram_diag(W, V, p):
     build.require(tuple(W.shape) == (out_d, in_d) and tuple(p.shape) == (N, in_d),
                   f"maecho_gram_diag: shapes W {tuple(W.shape)}, V {tuple(V.shape)}, "
                   f"p {tuple(p.shape)} do not match (out, in), (N, out, in), (N, in)")
+    build.require(N >= 1, f"maecho_gram_diag: N={N} clients, need at least 1")
     lib = build.load("maecho_gram_diag", _DIAG_SIGS)
-    build.require(1 <= N <= lib.maecho_gram_diag_max_clients(),
-                  f"maecho_gram_diag: N={N} clients outside "
-                  f"1..{lib.maecho_gram_diag_max_clients()}")
     ws = torch.empty(lib.maecho_gram_diag_workspace_floats(N, out_d, in_d),
                      dtype=torch.float32, device=W.device)
     G = torch.empty((N, N), dtype=torch.float32, device=W.device)
@@ -144,7 +140,6 @@ maecho_gram_diag.launches = 0
 
 _STACKED_SIGS = {
     "maecho_gram_stacked_workspace_floats": (ctypes.c_longlong, [ctypes.c_int] * 4),
-    "maecho_gram_stacked_max_clients": (ctypes.c_int, []),
     "maecho_gram_stacked_launch": (ctypes.c_int, [ctypes.c_void_p] * 5
                                    + [ctypes.c_int] * 4 + [ctypes.c_void_p]),
 }
@@ -155,10 +150,8 @@ def _gram_stacked_launch(name: str, sigs: dict, W, V, P, kind: str):
     the (L, N, N) Grams."""
     build.check_f32_cuda(name, W=W, V=V, P=P)
     N, L, out_d, in_d = build.stacked_dims(name, W, V, P, kind)
-    lib = build.load(name, sigs)
-    cap = getattr(lib, f"{name}_max_clients")()
-    build.require(N <= cap, f"{name}: N={N} clients outside 1..{cap}")
     build.require(L <= 65535, f"{name}: L={L} layers exceeds the grid's limit")
+    lib = build.load(name, sigs)
     ws = torch.empty(getattr(lib, f"{name}_workspace_floats")(N, L, out_d, in_d),
                      dtype=torch.float32, device=W.device)
     G = torch.empty((L, N, N), dtype=torch.float32, device=W.device)
@@ -174,7 +167,7 @@ def maecho_gram_stacked(W, V, P):
     ``repro/kernels/maecho_gram.py::maecho_gram_stacked``): the
     (L, N, N) per-layer Grams of Rₗᵢ = (Wₗ − Vᵢₗ)Pᵢₗ from W (L, out, in),
     V (N, L, out, in) and dense P (N, L, in, in) float32, one launch for
-    all L layers.  Any out/in; N up to 54."""
+    all L layers.  Any out/in and any N."""
     if W.device.type == "cpu":
         return ref.maecho_gram_stacked_ref(W, V, P)
     G = _gram_stacked_launch("maecho_gram_stacked", _STACKED_SIGS, W, V, P, "full")
@@ -187,7 +180,6 @@ maecho_gram_stacked.launches = 0
 _DIAG_STACKED_SIGS = {
     "maecho_gram_diag_stacked_workspace_floats": (ctypes.c_longlong,
                                                   [ctypes.c_int] * 4),
-    "maecho_gram_diag_stacked_max_clients": (ctypes.c_int, []),
     "maecho_gram_diag_stacked_launch": (ctypes.c_int, [ctypes.c_void_p] * 5
                                         + [ctypes.c_int] * 4 + [ctypes.c_void_p]),
 }
@@ -198,7 +190,7 @@ def maecho_gram_diag_stacked(W, V, p):
     ``repro/kernels/maecho_gram.py::maecho_gram_diag_stacked``): the
     (L, N, N) per-layer Grams of Rₗᵢ = (Wₗ − Vᵢₗ)·pᵢₗ from W (L, out, in),
     V (N, L, out, in) and the diagonals p (N, L, in) float32, one launch
-    for all L layers.  Any out/in; N up to 54."""
+    for all L layers.  Any out/in and any N."""
     if W.device.type == "cpu":
         return ref.maecho_gram_diag_stacked_ref(W, V, p)
     G = _gram_stacked_launch("maecho_gram_diag_stacked", _DIAG_STACKED_SIGS,
@@ -208,3 +200,35 @@ def maecho_gram_diag_stacked(W, V, p):
 
 
 maecho_gram_diag_stacked.launches = 0
+
+_LEFT_STACKED_SIGS = {
+    "maecho_gram_left_stacked_workspace_floats": (ctypes.c_longlong, [ctypes.c_int] * 4),
+    "maecho_gram_left_stacked_launch": (ctypes.c_int, [ctypes.c_void_p] * 4
+                                        + [ctypes.c_int] * 5 + [ctypes.c_void_p]),
+}
+
+
+def maecho_gram_left_stacked(A, UT):
+    """B11, the wrapper of ``csrc/maecho_gram_left_stacked.cu`` (port of
+    ``repro/kernels/maecho_gram.py::maecho_gram_left_stacked``): the
+    (L, N, N) per-layer Grams of Rₗᵢ = Aₗᵢ @ UTₗᵢ from the compressed
+    residual A (N, L, out, k) and UT (N, L, k, in) float32, one launch
+    for all L layers.  Any out/in/k and any N."""
+    if A.device.type == "cpu":
+        return ref.maecho_gram_left_stacked_ref(A, UT)
+    name = "maecho_gram_left_stacked"
+    build.check_f32_cuda(name, A=A, UT=UT)
+    N, L, out_d, kd, in_d = build.stacked_left_dims(name, A, UT)
+    lib = build.load(name, _LEFT_STACKED_SIGS)
+    ws = torch.empty(lib.maecho_gram_left_stacked_workspace_floats(N, L, out_d, in_d),
+                     dtype=torch.float32, device=A.device)
+    G = torch.empty((L, N, N), dtype=torch.float32, device=A.device)
+    err = lib.maecho_gram_left_stacked_launch(build.ptr(A), build.ptr(UT), build.ptr(ws),
+                                              build.ptr(G), N, L, out_d, in_d, kd,
+                                              build.stream())
+    build.check(err, name)
+    maecho_gram_left_stacked.launches += 1
+    return G
+
+
+maecho_gram_left_stacked.launches = 0

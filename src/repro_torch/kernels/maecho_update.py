@@ -6,7 +6,9 @@ Pᵢ (Rᵢ = Aᵢ @ UTᵢ, ``csrc/maecho_update_left.cu``, port of
 (Rᵢ = (W − Vᵢ)·pᵢ, ``csrc/maecho_update_diag.cu``, port of
 ``maecho_update_diag``); and their stacked twins for scan-stacked
 leaves, one launch for all layers: B13 (``csrc/maecho_update_stacked.cu``,
-port of ``maecho_update_stacked``) and B15
+port of ``maecho_update_stacked``), B14
+(``csrc/maecho_update_left_stacked.cu``, port of
+``maecho_update_left_stacked``) and B15
 (``csrc/maecho_update_diag_stacked.cu``, port of
 ``maecho_update_diag_stacked``).
 
@@ -174,3 +176,34 @@ def maecho_update_diag_stacked(W, V, p, alpha, eta: float = 1.0):
 
 
 maecho_update_diag_stacked.launches = 0
+
+_LEFT_STACKED_SIGS = {
+    "maecho_update_left_stacked_launch": (ctypes.c_int, [ctypes.c_void_p] * 5
+                                          + [ctypes.c_int] * 5
+                                          + [ctypes.c_float, ctypes.c_void_p]),
+}
+
+
+def maecho_update_left_stacked(W, A, UT, alpha, eta: float = 1.0):
+    """B14, the wrapper of ``csrc/maecho_update_left_stacked.cu`` (port of
+    ``repro/kernels/maecho_update.py::maecho_update_left_stacked``): Eq. 7
+    per layer from left factors, Wₗ' = Wₗ + η·(−Σᵢ 2αₗᵢ Aₗᵢ@UTₗᵢ), for
+    W (L, out, in), A (N, L, out, k), UT (N, L, k, in), alpha (L, N)
+    float32, one launch for all layers.  alpha stays on the device (no
+    host sync)."""
+    if W.device.type == "cpu":
+        return ref.maecho_update_left_stacked_ref(W, A, UT, alpha, eta)
+    name = "maecho_update_left_stacked"
+    build.check_f32_cuda(name, W=W, A=A, UT=UT, alpha=alpha)
+    N, L, out_d, kd, in_d = build.stacked_left_dims(name, A, UT, W=W, alpha=alpha)
+    lib = build.load(name, _LEFT_STACKED_SIGS)
+    out = torch.empty_like(W)
+    err = lib.maecho_update_left_stacked_launch(
+        build.ptr(W), build.ptr(A), build.ptr(UT), build.ptr(alpha), build.ptr(out),
+        N, L, out_d, in_d, kd, float(eta), build.stream())
+    build.check(err, name)
+    maecho_update_left_stacked.launches += 1
+    return out
+
+
+maecho_update_left_stacked.launches = 0

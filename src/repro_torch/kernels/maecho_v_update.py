@@ -4,9 +4,11 @@ B7 for dense Pᵢ (``csrc/maecho_v_update.cu``, port of
 factored Pᵢ (``csrc/maecho_v_update_factored.cu``, port of
 ``maecho_v_update_factored``), and B9 for diagonal Pᵢ = diag(pᵢ)
 (``csrc/maecho_v_update_diag.cu``, port of ``maecho_v_update_diag``);
-and the stacked twins of B7 and B9 for scan-stacked leaves, one launch
-for all layers: B16 (``csrc/maecho_v_update_stacked.cu``, port of
-``maecho_v_update_stacked``) and B18
+and the stacked twins of B7, B8 and B9 for scan-stacked leaves, one
+launch for all layers: B16 (``csrc/maecho_v_update_stacked.cu``, port of
+``maecho_v_update_stacked``), B17
+(``csrc/maecho_v_update_factored_stacked.cu``, port of
+``maecho_v_update_factored_stacked``) and B18
 (``csrc/maecho_v_update_diag_stacked.cu``, port of
 ``maecho_v_update_diag_stacked``).
 
@@ -241,3 +243,72 @@ def maecho_v_update_diag_stacked(W, V, p, frac: float, norm: bool = False,
 
 
 maecho_v_update_diag_stacked.launches = 0
+
+_FACTORED_STACKED_SIGS = {
+    "maecho_v_update_factored_stacked_workspace_floats": (ctypes.c_longlong,
+                                                          [ctypes.c_int] * 5),
+    "maecho_v_update_factored_stacked_launch": (ctypes.c_int, [ctypes.c_void_p] * 6
+                                                + [ctypes.c_int] * 5
+                                                + [ctypes.c_float, ctypes.c_int,
+                                                   ctypes.c_float, ctypes.c_void_p]),
+}
+
+
+def maecho_v_update_factored_stacked(W, V, U, s, frac: float, norm: bool = False,
+                                     eps: float = 1e-12, UT=None):
+    """B17 on the reference's operands (port of
+    ``repro/kernels/maecho_v_update.py::maecho_v_update_factored_stacked``):
+    Eq. 11 per layer for factored Pₗᵢ = Uₗᵢ·diag(sₗᵢ)·Uₗᵢᵀ, V'
+    (N, L, out, in) from W (L, out, in) updated global, V (N, L, out, in),
+    U (N, L, in, k), s (N, L, k) float32.  As in the reference it forms B,
+    the compressed residual of W, itself (one fp32 GEMM, not a kernel),
+    and hands B and Uᵀ (``UT`` (N, L, k, in) when the caller already holds
+    it) to the kernel through :func:`maecho_v_update_left_stacked`."""
+    if W.device.type == "cpu":
+        return ref.maecho_v_update_factored_stacked_ref(W, V, U, s, frac, norm, eps)
+    name = "maecho_v_update_factored_stacked"
+    build.check_f32_cuda(name, W=W, V=V, U=U, s=s)
+    build.require(V.dim() == 4 and U.dim() == 4 and s.dim() == 3,
+                  f"{name}: V must be (N, L, out, in), U (N, L, in, k) and s (N, L, k), "
+                  f"got {tuple(V.shape)}, {tuple(U.shape)}, {tuple(s.shape)}")
+    N, L, out_d, in_d = V.shape
+    kd = U.shape[-1]
+    build.require(tuple(W.shape) == (L, out_d, in_d) and tuple(U.shape) == (N, L, in_d, kd)
+                  and tuple(s.shape) == (N, L, kd) and kd >= 1,
+                  f"{name}: shapes W {tuple(W.shape)}, V {tuple(V.shape)}, "
+                  f"U {tuple(U.shape)}, s {tuple(s.shape)} do not match "
+                  f"(L, out, in), (N, L, out, in), (N, L, in, k), (N, L, k)")
+    if UT is None:
+        UT = U.transpose(-1, -2).contiguous()
+    return maecho_v_update_left_stacked(compressed_residual(W, V, U, s), UT, W, V,
+                                        frac, norm, eps)
+
+
+def maecho_v_update_left_stacked(B, UT, W, V, frac: float, norm: bool = False,
+                                 eps: float = 1e-12):
+    """The B17 kernel, ``csrc/maecho_v_update_factored_stacked.cu``, on the
+    operands of the reference's ``pallas_call``: V' (N, L, out, in) from B
+    (N, L, out, k) compressed residual of W, UT (N, L, k, in), W
+    (L, out, in) updated global and V (N, L, out, in) float32, one launch
+    for all layers.  Its launches count in
+    ``maecho_v_update_factored_stacked.launches``."""
+    if W.device.type == "cpu":
+        return ref.maecho_v_update_left_stacked_ref(B, UT, W, V, frac, norm, eps)
+    name = "maecho_v_update_left_stacked"
+    build.check_f32_cuda(name, B=B, UT=UT, W=W, V=V)
+    N, L, out_d, kd, in_d = build.stacked_left_dims(name, B, UT, W=W, V=V)
+    build.require(N * L <= 65535, f"{name}: N*L={N * L} exceeds the grid's z limit")
+    lib = build.load("maecho_v_update_factored_stacked", _FACTORED_STACKED_SIGS)
+    ws = torch.empty(lib.maecho_v_update_factored_stacked_workspace_floats(
+        N, L, out_d, in_d, int(norm)), dtype=torch.float32, device=W.device)
+    out = torch.empty_like(V)
+    err = lib.maecho_v_update_factored_stacked_launch(
+        build.ptr(B), build.ptr(UT), build.ptr(W), build.ptr(V), build.ptr(out),
+        build.ptr(ws), N, L, out_d, in_d, kd, float(frac), int(norm), float(eps),
+        build.stream())
+    build.check(err, "maecho_v_update_factored_stacked")
+    maecho_v_update_factored_stacked.launches += 1
+    return out
+
+
+maecho_v_update_factored_stacked.launches = 0

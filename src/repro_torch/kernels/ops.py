@@ -21,10 +21,12 @@ Stacked leaves — W (L, out, in) with the scan-layer axes flattened to
 one L, V and the projector (N, L, …) — take
 :func:`maecho_streaming_gram_stacked` and
 :func:`maecho_streaming_apply_stacked`: dense projectors run B10/B13/B16,
-stacked scalars (N, L) and diagonals (N, L, in) B12/B15/B18 (the scalar
+factored ones ``{"U": (N, L, in, k), "s": (N, L, k)}`` B11/B14/B17 (the
+Gram half forms the compressed residual A (N, L, out, k) and Uᵀ once
+and hands them on, as the unstacked factored branch does), stacked
+scalars (N, L) and diagonals (N, L, in) B12/B15/B18 (the scalar
 broadcast once to (N, L, in) in the Gram half), one launch each for all
-L layers.  Factored stacked projectors need B11/B14/B17 (ROADMAP A7)
-and raise.
+L layers.
 """
 from __future__ import annotations
 
@@ -35,15 +37,19 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.maecho_gram import (compressed_residual, maecho_gram,
                                              maecho_gram_diag,
                                              maecho_gram_diag_stacked,
-                                             maecho_gram_left, maecho_gram_stacked)
+                                             maecho_gram_left,
+                                             maecho_gram_left_stacked,
+                                             maecho_gram_stacked)
 from repro_torch.kernels.maecho_update import (maecho_update, maecho_update_diag,
                                                maecho_update_diag_stacked,
                                                maecho_update_left,
+                                               maecho_update_left_stacked,
                                                maecho_update_stacked)
 from repro_torch.kernels.maecho_v_update import (maecho_v_update,
                                                  maecho_v_update_diag,
                                                  maecho_v_update_diag_stacked,
                                                  maecho_v_update_factored,
+                                                 maecho_v_update_factored_stacked,
                                                  maecho_v_update_stacked)
 
 # below this edge a leaf runs the plain oracle (the reference's tile
@@ -109,16 +115,18 @@ def maecho_streaming_gram_stacked(W, V, P):
     """Stacked Gram half: ``(G, ctx)`` with G the (L, N, N) per-layer
     Eq. 6 Grams from one kernel launch and ``ctx`` the reuse context for
     :func:`maecho_streaming_apply_stacked`.  W (L, out, in), V
-    (N, L, out, in), P (N, L) scalars, (N, L, in) diagonals or
-    (N, L, in, in) dense, all in the "oi" layout, any out and in (the
-    kernels mask ragged edges; the plan sends leaves below one tile to
-    the oracle before they get here)."""
+    (N, L, out, in), P (N, L) scalars, (N, L, in) diagonals,
+    (N, L, in, in) dense or factored {"U": (N, L, in, k), "s": (N, L, k)},
+    all in the "oi" layout, any out and in (the kernels mask ragged
+    edges; the plan sends leaves below one tile to the oracle before
+    they get here)."""
     in_d = W.shape[2]
     kind = proj_kind(P, 1)
     if kind == "factored":
-        raise NotImplementedError(
-            "factored stacked projectors need the kernels B11/B14/B17, which "
-            "are not ported yet (ROADMAP item A7)")
+        U, s = P["U"], P["s"]
+        A = compressed_residual(W, V, U, s)               # (N, L, out, k)
+        UT = U.transpose(-1, -2).contiguous()             # (N, L, k, in)
+        return maecho_gram_left_stacked(A, UT), (kind, W, V, (U, s, A, UT))
     if kind == "full":
         return maecho_gram_stacked(W, V, P), (kind, W, V, P)
     p = P[:, :, None].expand(-1, -1, in_d).contiguous() if kind == "scalar" else P
@@ -136,5 +144,9 @@ def maecho_streaming_apply_stacked(alpha, ctx, *, eta: float = 1.0,
     if kind == "full":
         Wn = maecho_update_stacked(W, V, P, alpha, eta)
         return Wn, maecho_v_update_stacked(Wn, V, P, frac, norm, eps)
+    if kind == "factored":
+        U, s, A, UT = P
+        Wn = maecho_update_left_stacked(W, A, UT, alpha, eta)
+        return Wn, maecho_v_update_factored_stacked(Wn, V, U, s, frac, norm, eps, UT=UT)
     Wn = maecho_update_diag_stacked(W, V, P, alpha, eta)
     return Wn, maecho_v_update_diag_stacked(Wn, V, P, frac, norm, eps)

@@ -8,9 +8,9 @@ algebra understands — stacked scalars (N,), diagonals (N, in), dense
 package for dispatch).  The factored-only ones take the projector's
 factors, as the kernels B2/B5/B8 do; the diagonal-only ones take the
 (N, in) diagonal, as B3/B6/B9 do.  The stacked ones at the end are the
-dense and diagonal forms with a layer axis (W (L, out, in), V and the
-projectors (N, L, …), α (L, N)), as B10/B13/B16 and B12/B15/B18 take
-them: batched products over L, no loop over layers.
+dense, diagonal and factored forms with a layer axis (W (L, out, in), V
+and the projectors (N, L, …), α (L, N)), as B10/B13/B16, B12/B15/B18 and
+B11/B14/B17 take them: batched products over L, no loop over layers.
 """
 from __future__ import annotations
 
@@ -24,11 +24,22 @@ def _residuals(W, V, P, convention: str = "oi"):
     return _apply_P(W[None] - V, P, convention)
 
 
+def _gram(R):
+    """(N, N) Gram of a residual stack R (N, …): one partial Gram per row
+    of the last axis, then their sum, as the kernels sum per-tile
+    partials.  (One product over the whole flat leaf runs each fp32 dot
+    over every element in sequence and loses more: on an H100 its
+    batched form put the plain stacked Gram 4.7e-2 off the kernel at
+    400 x 784 and 55 clients, 12 times the tolerance.)"""
+    Rf = R.float()
+    Rr = (Rf.reshape(R.shape[0], -1, R.shape[-1]) if R.dim() > 2
+          else Rf[:, None]).transpose(0, 1)              # (rows, N, cols)
+    return (Rr @ Rr.transpose(-1, -2)).sum(0)
+
+
 def maecho_gram_ref(W, V, P, convention: str = "oi"):
     """G[i, j] = ⟨Rᵢ, Rⱼ⟩ with Rᵢ = (W − Vᵢ)Pᵢ — any projector kind."""
-    R = _residuals(W, V, P, convention)
-    Rf = R.reshape(R.shape[0], -1).float()
-    return Rf @ Rf.T
+    return _gram(_residuals(W, V, P, convention))
 
 
 def maecho_update_ref_any(W, V, P, alpha, eta: float = 1.0,
@@ -61,18 +72,19 @@ def maecho_v_update_ref(W, V, P, frac: float, norm: bool = False,
 # residual comes as a left factor Rᵢ = Aᵢ @ UTᵢ with UT = Uᵀ (N, k, in)
 # --------------------------------------------------------------------------
 def compressed_residual_ref(W, V, U, s):
-    """Aᵢ = ((W − Vᵢ)Uᵢ)·diag(sᵢ), the (N, out, k) compressed residual,
-    formed as W@Uᵢ − Vᵢ@Uᵢ (the reference's order) so the (N, out, in)
-    residual is never materialized."""
+    """Aᵢ = ((W − Vᵢ)Uᵢ)·diag(sᵢ), the (N, …, out, k) compressed residual,
+    formed as W@Uᵢ − Vᵢ@Uᵢ (the reference's order) so the (N, …, out, in)
+    residual is never materialized.  Stacked-layer axes ride the
+    ellipsis: W (…, out, in), V (N, …, out, in), U (N, …, in, k),
+    s (N, …, k)."""
     U = U.float()
     A = W.float() @ U - V.float() @ U
-    return A * s.float()[:, None, :]
+    return A * s.float()[..., None, :]
 
 
 def maecho_gram_left_ref(A, UT):
     """G[i, j] = ⟨Aᵢ@UTᵢ, Aⱼ@UTⱼ⟩ for A (N, out, k), UT (N, k, in)."""
-    R = (A.float() @ UT.float()).reshape(A.shape[0], -1)
-    return R @ R.T
+    return _gram(A.float() @ UT.float())
 
 
 def maecho_update_left_ref(W, A, UT, alpha, eta: float = 1.0):
@@ -106,8 +118,7 @@ def maecho_v_update_factored_ref(W, V, U, s, frac: float,
 # --------------------------------------------------------------------------
 def maecho_gram_diag_ref(W, V, p):
     """G[i, j] = ⟨Rᵢ, Rⱼ⟩ with Rᵢ = (W − Vᵢ)·pᵢ, p (N, in)."""
-    R = ((W[None] - V).float() * p.float()[:, None, :]).reshape(V.shape[0], -1)
-    return R @ R.T
+    return _gram((W[None] - V).float() * p.float()[:, None, :])
 
 
 def maecho_update_diag_ref(W, V, p, alpha, eta: float = 1.0):
@@ -128,13 +139,15 @@ def maecho_v_update_diag_ref(W, V, p, frac: float, norm: bool = False,
 
 
 # --------------------------------------------------------------------------
-# stacked leaves: W (L, out, in), V (N, L, out, in), dense P (N, L, in, in)
-# or diagonals p (N, L, in), alpha (L, N); one batched product over L
+# stacked leaves: W (L, out, in), V (N, L, out, in), dense P (N, L, in, in),
+# diagonals p (N, L, in) or factors A (N, L, out, k), UT (N, L, k, in),
+# alpha (L, N); one batched product over L
 # --------------------------------------------------------------------------
 def _gram_stacked(R):
-    """(L, N, N) Grams of a residual stack R (N, L, out, in)."""
-    Rf = R.float().transpose(0, 1).reshape(R.shape[1], R.shape[0], -1)
-    return Rf @ Rf.transpose(1, 2)
+    """(L, N, N) Grams of a residual stack R (N, L, out, in), by rows as
+    :func:`_gram`."""
+    Rr = R.float().permute(1, 2, 0, 3)                   # (L, out, N, in)
+    return (Rr @ Rr.transpose(-1, -2)).sum(1)
 
 
 def _update_stacked(W, R, alpha, eta: float):
@@ -182,3 +195,30 @@ def maecho_v_update_diag_stacked_ref(W, V, p, frac: float, norm: bool = False,
     frac·pᵢₗ))."""
     u = (W[None] - V).float() * (1.0 - frac * p.float()[:, :, None, :])
     return _v_finish(V, u, norm, eps)
+
+
+def maecho_gram_left_stacked_ref(A, UT):
+    """G[l, i, j] = ⟨Aₗᵢ@UTₗᵢ, Aₗⱼ@UTₗⱼ⟩ for A (N, L, out, k), UT (N, L, k, in)."""
+    return _gram_stacked(A.float() @ UT.float())
+
+
+def maecho_update_left_stacked_ref(W, A, UT, alpha, eta: float = 1.0):
+    """Eq. 7 per layer from left factors: Wₗ' = Wₗ + η·(−Σᵢ 2αₗᵢ Aₗᵢ@UTₗᵢ)."""
+    return _update_stacked(W, A.float() @ UT.float(), alpha, eta)
+
+
+def maecho_v_update_left_stacked_ref(B, UT, W, V, frac: float, norm: bool = False,
+                                     eps: float = 1e-12):
+    """Eq. 11 per layer from left factors: Vᵢₗ' = Vᵢₗ + Norm((Wₗ − Vᵢₗ) −
+    frac·Bₗᵢ@UTₗᵢ) for B (N, L, out, k), UT (N, L, k, in)."""
+    u = (W[None] - V).float() - frac * (B.float() @ UT.float())
+    return _v_finish(V, u, norm, eps)
+
+
+def maecho_v_update_factored_stacked_ref(W, V, U, s, frac: float, norm: bool = False,
+                                         eps: float = 1e-12):
+    """Eq. 11 per layer for factored projectors, U (N, L, in, k), s (N, L, k):
+    :func:`maecho_v_update_left_stacked_ref` with B the compressed residual
+    of W and UT = Uᵀ."""
+    return maecho_v_update_left_stacked_ref(compressed_residual_ref(W, V, U, s),
+                                            U.transpose(-1, -2), W, V, frac, norm, eps)

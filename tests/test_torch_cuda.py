@@ -1,5 +1,5 @@
-"""The CUDA kernels B1/B4/B7, B2/B5/B8, B3/B6/B9 and the stacked B10/B13/B16 and
-B12/B15/B18 against their plain versions on the card
+"""The CUDA kernels B1/B4/B7, B2/B5/B8, B3/B6/B9 and the stacked B10/B13/B16,
+B11/B14/B17 and B12/B15/B18 against their plain versions on the card
 (``PYTHONPATH=src python -m pytest --noconftest tests/test_torch_cuda.py``
 on a machine with an NVIDIA Hopper GPU and ``nvcc``; ``--noconftest``
 because ``tests/conftest.py`` imports jax, which such a machine need not
@@ -14,16 +14,21 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.maecho_gram import (compressed_residual, maecho_gram,
                                              maecho_gram_diag,
                                              maecho_gram_diag_stacked,
-                                             maecho_gram_left, maecho_gram_stacked)
+                                             maecho_gram_left,
+                                             maecho_gram_left_stacked,
+                                             maecho_gram_stacked)
 from repro_torch.kernels.maecho_update import (maecho_update, maecho_update_diag,
                                                maecho_update_diag_stacked,
                                                maecho_update_left,
+                                               maecho_update_left_stacked,
                                                maecho_update_stacked)
 from repro_torch.kernels.maecho_v_update import (maecho_v_update,
                                                  maecho_v_update_diag,
                                                  maecho_v_update_diag_stacked,
                                                  maecho_v_update_factored,
+                                                 maecho_v_update_factored_stacked,
                                                  maecho_v_update_left,
+                                                 maecho_v_update_left_stacked,
                                                  maecho_v_update_stacked)
 
 pytestmark = pytest.mark.cuda
@@ -69,8 +74,8 @@ def test_wrappers_reject_bad_operands(card):
     with pytest.raises(ValueError, match="shapes"):
         maecho_v_update(W, V, P[:, :4].contiguous(), 0.5)
     with pytest.raises(ValueError, match="clients"):
-        maecho_gram(W, torch.zeros(55, 8, 8, device="cuda"),
-                    torch.zeros(55, 8, 8, device="cuda"))
+        maecho_gram(W, torch.zeros(0, 8, 8, device="cuda"),
+                    torch.zeros(0, 8, 8, device="cuda"))
 
 
 def _factored(gen, out_d, in_d, k, N):
@@ -115,8 +120,8 @@ def test_factored_wrappers_reject_bad_operands(card):
     with pytest.raises(ValueError, match="shapes"):
         maecho_gram_left(A, UT[:, :2].contiguous())
     with pytest.raises(ValueError, match="clients"):
-        maecho_gram_left(torch.zeros(55, 8, 3, device="cuda"),
-                         torch.zeros(55, 3, 8, device="cuda"))
+        maecho_gram_left(torch.zeros(0, 8, 3, device="cuda"),
+                         torch.zeros(0, 3, 8, device="cuda"))
     with pytest.raises(ValueError, match="contiguous"):
         maecho_update_left(torch.zeros(8, 8, device="cuda"), A,
                            A.transpose(1, 2), torch.ones(2, device="cuda"))
@@ -216,8 +221,8 @@ def test_diag_wrappers_reject_bad_operands(card):
     with pytest.raises(ValueError, match="shapes"):
         maecho_update_diag(W, V, p, a[:1].contiguous())
     with pytest.raises(ValueError, match="clients"):
-        maecho_gram_diag(W, torch.zeros(55, 8, 8, device="cuda"),
-                         torch.zeros(55, 8, device="cuda"))
+        maecho_gram_diag(W, torch.zeros(0, 8, 8, device="cuda"),
+                         torch.zeros(0, 8, device="cuda"))
     for fn, args in ((maecho_update_diag, (a[:0],)), (maecho_v_update_diag, (0.5,))):
         with pytest.raises(ValueError, match="clients"):
             fn(W, torch.zeros(0, 8, 8, device="cuda"), torch.zeros(0, 8, device="cuda"),
@@ -287,8 +292,8 @@ def test_stacked_wrappers_reject_bad_operands(card):
     with pytest.raises(ValueError, match="V must be"):
         maecho_gram_diag_stacked(W, V[0], p)
     with pytest.raises(ValueError, match="clients"):
-        maecho_gram_diag_stacked(W, torch.zeros(55, 2, 8, 8, device="cuda"),
-                                 torch.zeros(55, 2, 8, device="cuda"))
+        maecho_gram_diag_stacked(W, torch.zeros(0, 2, 8, 8, device="cuda"),
+                                 torch.zeros(0, 2, 8, device="cuda"))
     with pytest.raises(ValueError, match="several devices"):
         maecho_v_update_diag_stacked(W, V, p.cpu(), 0.5)
 
@@ -319,3 +324,144 @@ def test_stacked_aggregate_launches_once_per_leaf_and_iteration(card, L):
                             stack_levels={"q": 1, "o": 1, "b": 1}, backend="oracle")
     for k in ("q", "o", "b"):
         torch.testing.assert_close(got[k], want[k], atol=1e-3, rtol=0)
+
+
+STACKED_LEFT = (maecho_gram_left_stacked, maecho_update_left_stacked,
+                maecho_v_update_factored_stacked)
+
+
+def _stacked_factored(gen, L, out_d, in_d, k, N):
+    W = torch.randn(L, out_d, in_d, device="cuda", generator=gen)
+    V = W + 0.1 * torch.randn(N, L, out_d, in_d, device="cuda", generator=gen)
+    U = torch.linalg.qr(torch.randn(N, L, in_d, k, device="cuda", generator=gen))[0]
+    s = torch.rand(N, L, k, device="cuda", generator=gen) * 0.9 + 0.1
+    a = torch.softmax(torch.randn(L, N, device="cuda", generator=gen), -1).contiguous()
+    return W, V, U.contiguous(), s, a
+
+
+# (L, out, in, rank, N): ragged out/in/rank with one client, a multi-tile
+# ragged leaf, one layer, 54 clients (one block) and 64 (client blocks)
+@pytest.mark.parametrize("shape", ((3, 33, 65, 7, 1), (3, 200, 300, 40, 5),
+                                   (1, 128, 256, 16, 3), (2, 64, 96, 40, 54),
+                                   (2, 64, 96, 40, 64)))
+def test_stacked_factored_kernels_match_plain(card, shape):
+    """B11/B14/B17 against their plain versions, B11 bitwise reproducible
+    and its layer l equal to B2 on that layer alone."""
+    L, out_d, in_d, k, N = shape
+    W, V, U, s, a = _stacked_factored(card, L, out_d, in_d, k, N)
+    A = compressed_residual(W, V, U, s)
+    UT = U.transpose(-1, -2).contiguous()
+    G, Gr = maecho_gram_left_stacked(A, UT), ref.maecho_gram_left_stacked_ref(A, UT)
+    assert G.shape == (L, N, N)
+    assert (G - Gr).abs().max() <= 1e-5 * Gr.abs().max()
+    assert torch.equal(G, maecho_gram_left_stacked(A, UT))
+    assert torch.equal(G[L - 1], maecho_gram_left(A[:, L - 1].contiguous(),
+                                                  UT[:, L - 1].contiguous()))
+    Wn = maecho_update_left_stacked(W, A, UT, a, 0.5)
+    torch.testing.assert_close(Wn, ref.maecho_update_left_stacked_ref(W, A, UT, a, 0.5),
+                               atol=1e-4, rtol=0)
+    B = compressed_residual(Wn, V, U, s)
+    for norm in (False, True):
+        want = ref.maecho_v_update_factored_stacked_ref(Wn, V, U, s, 0.9, norm)
+        torch.testing.assert_close(maecho_v_update_factored_stacked(Wn, V, U, s, 0.9, norm),
+                                   want, atol=1e-4, rtol=0)
+        torch.testing.assert_close(maecho_v_update_left_stacked(B, UT, Wn, V, 0.9, norm),
+                                   want, atol=1e-4, rtol=0)
+
+
+def test_stacked_factored_wrappers_reject_bad_operands(card):
+    A = torch.zeros(3, 2, 8, 4, device="cuda")
+    UT = torch.zeros(3, 2, 4, 8, device="cuda")
+    W = torch.zeros(2, 8, 8, device="cuda")
+    V = torch.zeros(3, 2, 8, 8, device="cuda")
+    a = torch.ones(2, 3, device="cuda")
+    with pytest.raises(ValueError, match="float32"):
+        maecho_gram_left_stacked(A, UT.double())
+    with pytest.raises(ValueError, match="shapes"):
+        maecho_gram_left_stacked(A, UT[:, :, :3].contiguous())
+    with pytest.raises(ValueError, match="must be"):
+        maecho_gram_left_stacked(A[0], UT)
+    with pytest.raises(ValueError, match="contiguous"):
+        maecho_update_left_stacked(W, A, UT, a.T)
+    with pytest.raises(ValueError, match="shapes"):
+        maecho_update_left_stacked(W, A, UT, a.T.contiguous())
+    with pytest.raises(ValueError, match="shapes"):
+        maecho_v_update_factored_stacked(W, V, torch.zeros(3, 2, 8, 4, device="cuda"),
+                                         torch.zeros(3, 2, 5, device="cuda"), 0.5)
+    with pytest.raises(ValueError, match="shapes"):
+        maecho_v_update_left_stacked(A, UT, W, V[:, :1].contiguous(), 0.5)
+    with pytest.raises(ValueError, match="several devices"):
+        maecho_v_update_left_stacked(A, UT, W, V.cpu(), 0.5)
+
+
+@pytest.mark.parametrize("L", (1, 3))
+def test_stacked_factored_aggregate_launches_once_per_leaf_and_iteration(card, L):
+    """A kernel aggregate with a factored stacked leaf launches B11/B14/B17
+    once per leaf and outer iteration, whatever L is (B12/B15/B18 for
+    the scalar one), and no other kernel; it matches the oracle
+    aggregate to 1e-3, "io" layout."""
+    N, tau, k = 3, 2, 24
+    clients = [{"q": torch.randn(L, 160, 200, device="cuda", generator=card),
+                "o": torch.randn(L, 200, 144, device="cuda", generator=card)}
+               for _ in range(N)]
+    U = torch.linalg.qr(torch.randn(N, L, 160, k, device="cuda", generator=card))[0]
+    projs = [{"q": {"U": U[i].contiguous(),
+                    "s": torch.rand(L, k, device="cuda", generator=card)},
+              "o": torch.ones(L, device="cuda")} for i in range(N)]
+    cfg = MAEchoConfig(tau=tau, eta=0.5, mu=20.0)
+    kernels = STACKED_LEFT + STACKED_DIAG + STACKED_FULL + OTHERS + DIAG
+    before = [k.launches for k in kernels]
+    got = maecho_aggregate(clients, projs, cfg, convention="io",
+                           stack_levels={"q": 1, "o": 1}, backend="kernel")
+    torch.cuda.synchronize()
+    assert [k.launches - b for k, b in zip(kernels, before)] == [tau] * 6 + [0] * 12
+    want = maecho_aggregate(clients, projs, cfg, convention="io",
+                            stack_levels={"q": 1, "o": 1}, backend="oracle")
+    for key in ("q", "o"):
+        torch.testing.assert_close(got[key], want[key], atol=1e-3, rtol=0)
+
+
+# Every Gram kernel past the 54 clients one CTA can park: 55 (three
+# blocks of 19/19/17) and 64 (22/22/20), on ragged multi-tile leaves
+@pytest.mark.parametrize("N", (55, 64))
+def test_gram_kernels_beyond_54_clients(card, N):
+    """B1, B2, B3, B10, B11 and B12 against their plain versions and a
+    float64 Gram, each bitwise reproducible, and a dense kernel aggregate
+    against the oracle's."""
+    out_d, in_d, k, L = 200, 300, 40, 2
+    W = torch.randn(out_d, in_d, device="cuda", generator=card)
+    V = W + 0.1 * torch.randn(N, out_d, in_d, device="cuda", generator=card)
+    Uf = torch.linalg.qr(torch.randn(N, in_d, k, device="cuda", generator=card))[0]
+    P = (Uf @ Uf.transpose(1, 2)).contiguous()
+    s = torch.rand(N, k, device="cuda", generator=card) + 0.1
+    p = torch.rand(N, in_d, device="cuda", generator=card)
+    A = compressed_residual(W, V, Uf, s)
+    UT = Uf.transpose(1, 2).contiguous()
+    Ws, Vs, Us, ss, _ = _stacked_factored(card, L, out_d, in_d, k, N)
+    Ps = (Us @ Us.transpose(-1, -2)).contiguous()
+    ps = torch.rand(N, L, in_d, device="cuda", generator=card)
+    As = compressed_residual(Ws, Vs, Us, ss)
+    UTs = Us.transpose(-1, -2).contiguous()
+    d, ds = (W[None] - V).double(), (Ws[None] - Vs).double()
+    for fn, plain, args, R64 in (
+            (maecho_gram, ref.maecho_gram_ref, (W, V, P), d @ P.double()),
+            (maecho_gram_left, ref.maecho_gram_left_ref, (A, UT), A.double() @ UT.double()),
+            (maecho_gram_diag, ref.maecho_gram_diag_ref, (W, V, p),
+             d * p.double()[:, None, :]),
+            (maecho_gram_stacked, ref.maecho_gram_stacked_ref, (Ws, Vs, Ps),
+             ds @ Ps.double()),
+            (maecho_gram_left_stacked, ref.maecho_gram_left_stacked_ref, (As, UTs),
+             As.double() @ UTs.double()),
+            (maecho_gram_diag_stacked, ref.maecho_gram_diag_stacked_ref, (Ws, Vs, ps),
+             ds * ps.double()[:, :, None, :])):
+        G, Gr = fn(*args), plain(*args)
+        assert G.shape == Gr.shape and G.shape[-2:] == (N, N), fn.__name__
+        assert (G - Gr).abs().max() <= 1e-5 * Gr.abs().max(), fn.__name__
+        Rf = R64.reshape(N, -1, out_d * in_d).transpose(0, 1)      # (L or 1, N, out·in)
+        G64 = (Rf @ Rf.transpose(-1, -2)).reshape(G.shape)
+        assert (G.double() - G64).abs().max() <= 1e-5 * G64.abs().max(), fn.__name__
+        assert torch.equal(G, fn(*args)), fn.__name__
+    clients = [{"W": W.clone()}] + [{"W": V[i] + 0.0} for i in range(1, N)]
+    projs = [{"W": P[i]} for i in range(N)]
+    cfg = MAEchoConfig(tau=2, eta=0.5, mu=20.0)
+    assert _aggregate_launches(clients, projs, cfg, OTHERS[:3]) == [2, 2, 2]

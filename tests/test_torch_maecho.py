@@ -133,13 +133,15 @@ def test_unported_options_raise(what):
     if what.startswith("sharded"):
         kw["backend"] = what
     elif what == "stacked":
-        # stacked leaves are ported; their factored kernels B11/B14/B17
-        # (ROADMAP A7) are not, and the kernel route must say so
+        # stacked factored leaves are ported (B11/B14/B17); their
+        # client-chunked route (the reference's
+        # maecho_streaming_gram_chunked_stacked, ROADMAP A8) is not
         r = np.random.RandomState(0)
         clients = [{"W": r.randn(2, 128, 128).astype(np.float32)} for _ in range(2)]
         projs = [{"W": {"U": r.randn(2, 128, 4).astype(np.float32),
                         "s": r.rand(2, 4).astype(np.float32)}} for _ in range(2)]
         kw.update(stack_levels={"W": 1}, backend="kernel")
+        cfg = dataclasses.replace(TCFG, client_chunk=2)
     else:
         cfg = dataclasses.replace(TCFG, client_chunk=2)
     with pytest.raises(NotImplementedError, match="ROADMAP item A"):

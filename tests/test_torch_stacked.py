@@ -1,9 +1,10 @@
 """Port parity on the stacked-leaf path (scan-stacked layers, the LLM
-layout): the plain versions of B10/B13/B16 and B12/B15/B18 (the CPU path
-of their wrappers) against the reference's stacked Pallas kernels in
-interpret mode, the stacked streaming dispatch, the plan's per-leaf
-routes at one and two layer axes, and the aggregate with
-``stack_levels`` on the kernel backend against the reference's.
+layout): the plain versions of B10/B13/B16, B11/B14/B17 and B12/B15/B18
+(the CPU path of their wrappers) against the reference's stacked Pallas
+kernels in interpret mode, the compressed residual of a stacked factored
+leaf, the stacked streaming dispatch, the plan's per-leaf routes at one
+and two layer axes, and the aggregate with ``stack_levels`` on the
+kernel backend against the reference's.
 
 Inputs come from fixed numpy seeds (or the reference's own case
 builder).  Tolerances are the reference's kernel tests'
@@ -35,7 +36,9 @@ JCFG = jm.MAEchoConfig(tau=3, eta=0.5, mu=20.0, qp_iters=60)
 TCFG = tm.MAEchoConfig(tau=3, eta=0.5, mu=20.0, qp_iters=60)
 STACKED = (tmg.maecho_gram_stacked, tmu.maecho_update_stacked,
            tmv.maecho_v_update_stacked, tmg.maecho_gram_diag_stacked,
-           tmu.maecho_update_diag_stacked, tmv.maecho_v_update_diag_stacked)
+           tmu.maecho_update_diag_stacked, tmv.maecho_v_update_diag_stacked,
+           tmg.maecho_gram_left_stacked, tmu.maecho_update_left_stacked,
+           tmv.maecho_v_update_factored_stacked)
 
 
 def to_port(tree):
@@ -47,34 +50,45 @@ def _close(got, want, **tol):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **tol)
 
 
-def _stacked_leaf(seed, n, L, out_d, in_d, kind):
+def _stacked_leaf(seed, n, L, out_d, in_d, kind, rank=40):
     """W (L, out, in), V (N, L, out, in), the projector — dense
-    (N, L, in, in) rank-in/2 projectors, (N, L, in) diagonals in [0, 1]
-    or (N, L) scalars — and alpha (L, N) on the simplex, float32."""
+    (N, L, in, in) rank-in/2 projectors, factored {"U": (N, L, in, rank)
+    orthonormal, "s": (N, L, rank) in [0.1, 1]}, (N, L, in) diagonals in
+    [0, 1] or (N, L) scalars — and alpha (L, N) on the simplex, float32."""
     r = np.random.RandomState(seed)
     W = (r.randn(L, out_d, in_d) * 0.5).astype(np.float32)
     V = (W + r.randn(n, L, out_d, in_d) * 0.5).astype(np.float32)
-    if kind == "full":
-        U = np.linalg.qr(r.randn(n, L, in_d, in_d // 2))[0]
-        P = U @ np.swapaxes(U, -1, -2)
+    if kind in ("full", "factored"):
+        U = np.linalg.qr(r.randn(n, L, in_d, in_d // 2 if kind == "full" else rank))[0]
+        P = (U @ np.swapaxes(U, -1, -2) if kind == "full" else
+             {"U": U.astype(np.float32),
+              "s": (0.1 + 0.9 * r.rand(n, L, rank)).astype(np.float32)})
     elif kind == "diag":
         P = r.rand(n, L, in_d)
     else:
         P = r.rand(n, L)
+    if not isinstance(P, dict):
+        P = P.astype(np.float32)
     a = r.rand(L, n) + 0.1
-    return W, V, P.astype(np.float32), (a / a.sum(-1, keepdims=True)).astype(np.float32)
+    return W, V, P, (a / a.sum(-1, keepdims=True)).astype(np.float32)
 
 
 @pytest.mark.parametrize("norm", (False, True))
-@pytest.mark.parametrize("kind", ("full", "diag"))
+@pytest.mark.parametrize("kind", ("full", "diag", "factored"))
 def test_stacked_plain_versions_match_pallas_interpret(kind, norm):
-    """ref.maecho_*_stacked_ref and the six stacked wrappers on CPU
+    """ref.maecho_*_stacked_ref and the nine stacked wrappers on CPU
     tensors against the reference's stacked Pallas kernels in interpret
-    mode (L = 2, N = 3, out 128, in 256); the wrappers count nothing on
-    the CPU."""
+    mode (L = 2, N = 3, out 128, in 256; factored rank 40); the wrappers
+    count nothing on the CPU."""
     W, V, P, a = _stacked_leaf(11 + norm, 3, 2, 128, 256, kind)
     Wt, Vt, Pt, at = to_port((W, V, P, a))
     frac = 20.0 / 21.0
+    for fn in STACKED:
+        fn.launches = 0
+    if kind == "factored":
+        _check_factored_stacked(W, V, P, a, Wt, Vt, Pt, at, frac, norm)
+        assert [fn.launches for fn in STACKED] == [0] * 9
+        return
     if kind == "full":
         gram, update, v_update = STACKED[:3]
         want_g = jmg.maecho_gram_stacked(W, V, P)
@@ -84,7 +98,7 @@ def test_stacked_plain_versions_match_pallas_interpret(kind, norm):
         plain = (ref.maecho_gram_stacked_ref, ref.maecho_update_stacked_ref,
                  ref.maecho_v_update_stacked_ref)
     else:
-        gram, update, v_update = STACKED[3:]
+        gram, update, v_update = STACKED[3:6]
         want_g = jmg.maecho_gram_diag_stacked(W, V, P)
         want_w = jmu.maecho_update_diag_stacked(W, V, P, a, eta=0.5)
         want_v = jmv.maecho_v_update_diag_stacked(want_w, V, P, frac=frac,
@@ -92,15 +106,57 @@ def test_stacked_plain_versions_match_pallas_interpret(kind, norm):
         plain = (ref.maecho_gram_diag_stacked_ref, ref.maecho_update_diag_stacked_ref,
                  ref.maecho_v_update_diag_stacked_ref)
     Wn = to_port(np.asarray(want_w))
-    for fn in STACKED:
-        fn.launches = 0
     for g_fn in (plain[0], gram):
         _close(g_fn(Wt, Vt, Pt), want_g, **GRAM_TOL)
     for u_fn in (plain[1], update):
         _close(u_fn(Wt, Vt, Pt, at, 0.5), want_w, **APPLY_TOL)
     for v_fn in (plain[2], v_update):
         _close(v_fn(Wn, Vt, Pt, frac, norm), want_v, **APPLY_TOL)
-    assert [fn.launches for fn in STACKED] == [0] * 6
+    assert [fn.launches for fn in STACKED] == [0] * 9
+
+
+def _check_factored_stacked(W, V, P, a, Wt, Vt, Pt, at, frac, norm):
+    """B11/B14/B17's plain versions and wrappers (the latter's CPU path)
+    against ``maecho_gram_left_stacked``, ``maecho_update_left_stacked``
+    and ``maecho_v_update_factored_stacked`` in interpret mode, on the
+    reference's own compressed residual A and Uᵀ; B17 also on its kernel
+    operands (B, Uᵀ, W', V)."""
+    U, s = P["U"], P["s"]
+    A = jmg.compressed_residual(W, V, U, s)
+    UT = np.ascontiguousarray(np.swapaxes(U, 2, 3))
+    want_g = jmg.maecho_gram_left_stacked(A, UT)
+    want_w = jmu.maecho_update_left_stacked(W, A, UT, a, eta=0.5)
+    want_v = jmv.maecho_v_update_factored_stacked(want_w, V, U, s, frac=frac, norm=norm,
+                                                  bi=256)
+    At, UTt, Wn = to_port((np.asarray(A), UT, np.asarray(want_w)))
+    Ut, st = Pt["U"], Pt["s"]
+    _close(tmg.compressed_residual(Wt, Vt, Ut, st), A, **APPLY_TOL)
+    for g_fn in (ref.maecho_gram_left_stacked_ref, tmg.maecho_gram_left_stacked):
+        _close(g_fn(At, UTt), want_g, **GRAM_TOL)
+    for u_fn in (ref.maecho_update_left_stacked_ref, tmu.maecho_update_left_stacked):
+        _close(u_fn(Wt, At, UTt, at, 0.5), want_w, **APPLY_TOL)
+    for v_fn in (ref.maecho_v_update_factored_stacked_ref,
+                 tmv.maecho_v_update_factored_stacked):
+        _close(v_fn(Wn, Vt, Ut, st, frac, norm), want_v, **APPLY_TOL)
+    B = tmg.compressed_residual(Wn, Vt, Ut, st)
+    for v_fn in (ref.maecho_v_update_left_stacked_ref, tmv.maecho_v_update_left_stacked):
+        _close(v_fn(B, UTt, Wn, Vt, frac, norm), want_v, **APPLY_TOL)
+
+
+@pytest.mark.parametrize("lead", ((), (3,), (2, 2)), ids=("levels0", "levels1", "levels2"))
+def test_compressed_residual_matches_reference_on_stacked_s(lead):
+    """ref.compressed_residual_ref broadcasts s over out as the
+    reference's ellipsis form does, for a per-client s (N, k) and a
+    stacked s (N, …, k) alike."""
+    r = np.random.RandomState(5 + len(lead))
+    n, out_d, in_d, k = 3, 24, 40, 7
+    W = r.randn(*lead, out_d, in_d).astype(np.float32)
+    V = r.randn(n, *lead, out_d, in_d).astype(np.float32)
+    U = r.randn(n, *lead, in_d, k).astype(np.float32)
+    s = r.rand(n, *lead, k).astype(np.float32)
+    got = ref.compressed_residual_ref(*to_port((W, V, U, s)))
+    assert tuple(got.shape) == (n, *lead, out_d, k)
+    _close(got, jmg.compressed_residual(W, V, U, s), **APPLY_TOL)
 
 
 @pytest.mark.parametrize("kind,shape,norm", (("full", (128, 256), False),
@@ -108,7 +164,9 @@ def test_stacked_plain_versions_match_pallas_interpret(kind, norm):
                                              ("diag", (128, 256), True),
                                              ("diag", (200, 140), False),
                                              ("scalar", (128, 256), False),
-                                             ("scalar", (200, 140), True)))
+                                             ("scalar", (200, 140), True),
+                                             ("factored", (128, 256), True),
+                                             ("factored", (200, 140), False)))
 def test_streaming_stacked_matches_reference(kind, shape, norm):
     """ops.maecho_streaming_{gram,apply}_stacked (CPU: plain versions;
     the reference pads, the port masks) against the reference's stacked
@@ -118,7 +176,7 @@ def test_streaming_stacked_matches_reference(kind, shape, norm):
     want_g, jctx = jops.maecho_streaming_gram_stacked(W, V, P)
     want_w, want_v = jops.maecho_streaming_apply_stacked(a, jctx, **kw)
     got_g, ctx = ops.maecho_streaming_gram_stacked(*to_port((W, V, P)))
-    assert ctx[0] == ("full" if kind == "full" else "diag")
+    assert ctx[0] == (kind if kind in ("full", "factored") else "diag")
     got_w, got_v = ops.maecho_streaming_apply_stacked(to_port(a), ctx, **kw)
     _close(got_g, want_g, **GRAM_TOL)
     _close(got_w, want_w, **APPLY_TOL)
@@ -153,27 +211,42 @@ def test_dispatch_summary_matches_reference(lead, convention, backend):
         assert ("a", len(lead), "stacked") in got[0]
 
 
-@pytest.mark.parametrize("backend", ("kernel", "auto"))
-def test_factored_stacked_leaf_raises_on_kernel_backends(backend):
-    """Stacked factored projectors need B11/B14/B17 (ROADMAP A7): the
-    kernel route raises instead of quietly running the oracle, which
-    still takes them on backend="oracle"."""
-    clients, projs, levels, _ = strat.build_case(5, 2, "factored", "oi", (2,),
-                                                 (128, 128), False)
-    tc, tp = to_port(clients), to_port(projs)
-    with pytest.raises(NotImplementedError, match="B11/B14/B17"):
-        tm.maecho_aggregate(tc, tp, TCFG, stack_levels=levels, backend=backend,
-                            device="cpu")
-    got = tm.maecho_aggregate(tc, tp, TCFG, stack_levels=levels, backend="oracle",
-                              device="cpu")
-    want = jm.maecho_aggregate(clients, projs, JCFG, stack_levels=levels)
-    _close(got["W"], want["W"], atol=1e-3)
+def _factored_routing_tree(lead):
+    """A stacked model whose factored leaves take every route: a
+    tileable one (stacked), a sub-tile one (oracle), and a 1-D bias."""
+    n, k = 3, 16
+    W = {"f": np.zeros(lead + (256, 140), np.float32),
+         "g": np.zeros(lead + (64, 300), np.float32),
+         "c": np.zeros(lead + (256,), np.float32)}
+    P = {"f": {"U": np.zeros((n,) + lead + (140, k), np.float32),
+               "s": np.zeros((n,) + lead + (k,), np.float32)},
+         "g": {"U": np.zeros((n,) + lead + (300, k), np.float32),
+               "s": np.zeros((n,) + lead + (k,), np.float32)},
+         "c": np.zeros((n,) + lead, np.float32)}
+    return W, P, {key: len(lead) for key in W}
+
+
+@pytest.mark.parametrize("backend", ("oracle", "kernel", "auto"))
+@pytest.mark.parametrize("convention", ("oi", "io"))
+@pytest.mark.parametrize("lead", ((4,), (2, 3)), ids=("levels1", "levels2"))
+def test_dispatch_summary_factored_stacked_matches_reference(lead, convention, backend):
+    """A factored stacked leaf of at least one tile takes the stacked
+    route (B11/B14/B17) on the kernel backends, as in the reference."""
+    W, P, levels = _factored_routing_tree(lead)
+    want = jm.dispatch_summary(W, P, levels, JCFG, convention, backend)
+    got = tm.dispatch_summary(to_port(W), to_port(P), levels, TCFG, convention,
+                              backend)
+    assert got == want
+    if backend != "oracle":
+        assert ("f", len(lead), "stacked") in got[0]
 
 
 @pytest.mark.parametrize("kind,convention,lead,masked", (
     ("full", "io", (2,), False), ("full", "oi", (2, 2), True),
     ("scalar", "io", (3,), False), ("diag", "oi", (2,), False),
-    ("diag", "io", (2, 2), False)))
+    ("diag", "io", (2, 2), False), ("factored", "oi", (2,), False),
+    ("factored", "io", (3,), False), ("factored", "oi", (2, 2), True),
+    ("factored", "io", (2, 2), False)))
 def test_stacked_aggregate_matches_reference(kind, convention, lead, masked):
     """maecho_aggregate(stack_levels=...) on the port's kernel backend
     (CPU: the stacked plain versions) and oracle backend against the
