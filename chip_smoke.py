@@ -102,6 +102,47 @@ which follow phase 7):
    within 1e-3, and each of B11/B14/B17 launched once per outer
    iteration, whatever L is.
 
+Added with client chunking (``MAEchoConfig.client_chunk``), B19 and B20
+(12 and 13 right after phase 9, 14 after them, 15 right after 10):
+
+12. B19 (the chunk-pair cross-Gram) against its plain version and a
+   float64 product at (ca, cb, D) = (64, 64, 400·784), (64, 64,
+   4864·896), (37, 64, 60 001) and (1, 64, 313 600), bitwise
+   reproducible and exactly symmetric on a diagonal block; B20 (the
+   block-RLS downdate) at (d, b) = (512, 64), (784, 128) and (896, 128)
+   against its plain version and float64 within 1e-3.  Both timed from
+   CUDA-graph replays with their plain versions, B19 beside
+   ``torch.mm(Ra, Rb.T)`` and B20 beside the two-call chain
+   ``torch.addmm(Q, U @ A, U.T, alpha=-1)``.  Then the dense phase's
+   first 2048 training inputs (row-normalised, as
+   ``compute_projections`` feeds W0) through ``ops.block_rls_update``
+   block by block: B20 launches once per 128-row block, no other kernel,
+   and the projector equals ``null_projector_from_features`` to 1e-3.
+13. The reference's ``bench_largeN_agg`` grid: one factored leaf
+   (256 x 256, rank 16), N ∈ {8, 64, 128, 512}, one Gram + apply at a
+   uniform α, chunked at 64 through B19 against the unchunked plain
+   route (G within 1e-5·max|G|, W' and V' within 1e-3), each with its
+   device memory peak above inputs and outputs: the chunked peak at
+   N = 512 at most 1.25x its N = 128 peak (O(chunk)), the unchunked one
+   at least 3x (O(N)); N = 4096 at 32 x 32 (rank 8), chunked only; the
+   QP at N = 512 (200 iterations) and 4096 (30) with a tenth of the
+   clients masked out, timed, with its memory peak above G, α within
+   1e-5 of the same solve on the CPU and exactly 0 where masked out.
+14. 256 synthetic clients at the paper MLP's shapes with factored rank-78
+   projectors: ``maecho_aggregate(backend="kernel")`` at
+   ``client_chunk=64``, τ = 2 (timed, QP share, peak memory): B19
+   launches τ · 2 leaves · 10 chunk pairs = 40 times and no other
+   kernel; within 1e-3 of the unchunked kernel aggregate (B2/B5/B8 4
+   times each, blocked Grams at N = 256) and of the oracle.  Then phase 9's 64
+   dense-projector clients at ``client_chunk=16``, τ = 2: B19 40 times,
+   within 1e-3 of the oracle.
+15. The LLM silos with phase 10's factored projectors through
+   ``aggregate_llm`` at ``client_chunk=1``, τ = 2: the stacked leaves
+   chunk through torch products (no kernel), the embedding's (896 x
+   151 936, diagonal) three chunk pairs through B19, 6 launches in all;
+   within 1e-3 of the unchunked kernel aggregate at τ = 2; peak memory
+   beside phase 10's.
+
 It prints each phase's time, the QP's and the kernels' time inside a
 kernel aggregate of each path (CUDA events around each call), a
 ``{"kernels": [...]}`` JSON line, the card's name and power limit, and
@@ -138,10 +179,13 @@ STACKED_DIAG = ("maecho_gram_diag_stacked", "maecho_update_diag_stacked",
                 "maecho_v_update_diag_stacked")                            # B12 B15 B18
 STACKED_LEFT = ("maecho_gram_left_stacked", "maecho_update_left_stacked",
                 "maecho_v_update_factored_stacked")                        # B11 B14 B17
-KERNELS = DENSE + FACTORED + DIAG + STACKED + STACKED_DIAG + STACKED_LEFT
+CROSS = ("maecho_gram_cross",)    # B19
+DOWNDATE = ("rank_downdate",)     # B20
+KERNELS = DENSE + FACTORED + DIAG + STACKED + STACKED_DIAG + STACKED_LEFT + CROSS + DOWNDATE
 GRAMS = ("maecho_gram", "maecho_gram_left", "maecho_gram_diag", "maecho_gram_stacked",
          "maecho_gram_left_stacked", "maecho_gram_diag_stacked")   # B1 B2 B3 B10 B11 B12
 MANY_CLIENTS = (55, 64, 128)   # past the 54 clients one Gram CTA parks
+CHUNK = 64              # bench_largeN_agg.py's chunk, and the full-width path's
 LLM_TAU = 15            # the example's MAEchoConfig(tau=15, eta=0.5, mu=20)
 LLM_RANK = 89           # table6_svd.py's "factored0.1" at d_model: int(0.1 * 896)
 # B1/B2 (k = 78)/B3 at W0, N = 4, in run Q (PERF.md §6; H100 80GB HBM3, 700 W)
@@ -163,7 +207,9 @@ REPLACES = {"maecho_gram": "src/repro/kernels/maecho_gram.py:131",
             "maecho_v_update_diag_stacked": "src/repro/kernels/maecho_v_update.py:271",
             "maecho_gram_left_stacked": "src/repro/kernels/maecho_gram.py:337",
             "maecho_update_left_stacked": "src/repro/kernels/maecho_update.py:217",
-            "maecho_v_update_factored_stacked": "src/repro/kernels/maecho_v_update.py:233"}
+            "maecho_v_update_factored_stacked": "src/repro/kernels/maecho_v_update.py:233",
+            "maecho_gram_cross": "src/repro/kernels/maecho_gram.py:242",
+            "rank_downdate": "src/repro/kernels/rank_update.py:48"}
 
 
 def fail(msg: str) -> None:
@@ -230,6 +276,13 @@ def gram_left_flops(N: int, out_d: int, in_d: int, k: int) -> float:
     form_r = 2.0 * N * out_d * in_d * k + 2.0 * pairs * out_d * in_d
     cross = pairs * (2.0 * k * k * (out_d + in_d) + 2.0 * k * k)
     return min(form_r, cross)
+
+
+def downdate_flops(d: int, b: int) -> float:
+    """Least operations of Q − U·A·Uᵀ with A (b, b) symmetric: T = U·A,
+    then only the upper triangle of T·Uᵀ (the product is symmetric), then
+    the subtraction.  B20 computes both triangles."""
+    return 2.0 * d * b * b + d * (d + 1.0) * b + d * d
 
 
 def layer_inputs(torch, gen, out_d, in_d, N):
@@ -715,21 +768,8 @@ def phase_many_clients_mlp(torch, kern):
     "W", the scalar rule on every bias), backend="kernel" against
     backend="oracle" at τ = TAU_CHECK."""
     from repro_torch.core.maecho import MAEchoConfig, maecho_aggregate
-    from repro_torch.fl import models as pm
 
-    N = 64
-    gen = torch.Generator(device="cuda").manual_seed(6)
-    base = pm.init(pm.MLP_SPEC, seed=3, device="cuda")
-    clients, projs = [], []
-    for _ in range(N):
-        clients.append([{key: x + 0.05 * torch.randn(x.shape, device="cuda", generator=gen)
-                         for key, x in lay.items()} for lay in base])
-        proj = []
-        for lay in base:
-            d = lay["W"].shape[1]
-            U = torch.linalg.qr(torch.randn(d, d // 2, device="cuda", generator=gen))[0]
-            proj.append({"W": (U @ U.T).contiguous(), "b": torch.ones((), device="cuda")})
-        projs.append(proj)
+    clients, projs = synthetic_mlp_clients(torch, 64, 6)
 
     def run(tau, backend):
         return maecho_aggregate(clients, projs, MAEchoConfig(tau=tau, eta=0.5, mu=20.0),
@@ -738,8 +778,38 @@ def phase_many_clients_mlp(torch, kern):
     t0 = time.perf_counter()
     r = aggregates(torch, kern, run, TAU_CHECK)
     r["t"] = time.perf_counter() - t0
-    r["shapes"] = [tuple(lay["W"].shape) for lay in clients[0]]
+    r.update(shapes=[tuple(lay["W"].shape) for lay in clients[0]], clients=clients,
+             projs=projs)
     return r
+
+
+def synthetic_mlp_clients(torch, N: int, seed: int, rank=None):
+    """N seeded synthetic clients at the paper MLP's shapes
+    (784-400-200-100-10): one init plus 0.05 noise each, and per "W" a
+    rank-in/2 dense projector (``rank=None``) or a factored one
+    {"U": orthonormal (in, rank), "s" in [0.1, 1)}; the scalar rule on
+    every bias."""
+    from repro_torch.fl import models as pm
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    base = pm.init(pm.MLP_SPEC, seed=3, device="cuda")
+    clients, projs = [], []
+    for _ in range(N):
+        clients.append([{key: x + 0.05 * torch.randn(x.shape, device="cuda", generator=gen)
+                         for key, x in lay.items()} for lay in base])
+        proj = []
+        for lay in base:
+            d = lay["W"].shape[1]
+            if rank is None:
+                U = torch.linalg.qr(torch.randn(d, d // 2, device="cuda", generator=gen))[0]
+                P = (U @ U.T).contiguous()
+            else:
+                U = torch.linalg.qr(torch.randn(d, rank, device="cuda", generator=gen))[0]
+                P = {"U": U.contiguous(),
+                     "s": torch.rand(rank, device="cuda", generator=gen) * 0.9 + 0.1}
+            proj.append({"W": P, "b": torch.ones((), device="cuda")})
+        projs.append(proj)
+    return clients, projs
 
 
 def factor_llm_projections(torch, projs, k: int):
@@ -802,6 +872,7 @@ def phase_llm_factored_path(torch, kern, lm):
     t1 = time.perf_counter()
     f["ppl"] = {"maecho_factored": llm_ppl(torch, lm["model"], cfg, agg)}
     f["t_ppl"] = time.perf_counter() - t1
+    f["projs"] = projs
     return f
 
 
@@ -835,6 +906,259 @@ def phase_bench_stacked_agg(torch, kern):
         diff = (got["W"] - run("oracle")["W"]).abs().max().item()
         out[L] = (launches, diff, wall)
     return out
+
+
+def phase_chunk_kernels(torch, kern, ref):
+    """B19 and B20 against their plain versions and float64 on the card,
+    timed with their plain versions and a PyTorch yardstick; then a
+    client's W0 projector chained through ``ops.block_rls_update``.
+    Returns (errors, timings, {(name, label): yardstick ms}, chain
+    record)."""
+    from repro_torch.core import projections as proj
+    from repro_torch.data.synthetic import DatasetSpec, generate
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    err = {"maecho_gram_cross": 0.0, "rank_downdate": 0.0}
+    timings, library = {}, {}
+    for label, ca, cb, D in (("W0", 64, 64, 400 * 784), ("w_gate", 64, 64, 4864 * 896),
+                             ("ragged", 37, 64, 60001), ("one", 1, 64, 313600)):
+        Ra = torch.randn(ca, D, device="cuda", generator=gen)
+        Rb = torch.randn(cb, D, device="cuda", generator=gen)
+        tag = f"{label} (ca={ca}, cb={cb}, D={D})"
+        G, Gr = kern.maecho_gram_cross(Ra, Rb), ref.maecho_gram_cross_ref(Ra, Rb)
+        G64 = Ra.double() @ Rb.double().T
+        e, tol = (G - Gr).abs().max().item(), GRAM_RTOL * Gr.abs().max().item()
+        e64, tol64 = (G.double() - G64).abs().max().item(), GRAM_RTOL * G64.abs().max().item()
+        p64 = (Gr.double() - G64).abs().max().item()
+        l64 = (torch.mm(Ra, Rb.T).double() - G64).abs().max().item()
+        del G64
+        print(f"[kernels] {tag} maecho_gram_cross max_abs_err {e:.3e} tol {tol:.3e}; "
+              f"against float64: kernel {e64:.3e}, plain {p64:.3e}, torch.mm {l64:.3e}, "
+              f"tol {tol64:.3e}")
+        check(e <= tol, f"maecho_gram_cross disagrees at {tag}")
+        check(e64 <= tol64, f"maecho_gram_cross disagrees with float64 at {tag}")
+        check(torch.equal(G, kern.maecho_gram_cross(Ra, Rb)),
+              f"maecho_gram_cross is not reproducible at {tag}")
+        Gs = kern.maecho_gram_cross(Rb, Rb)
+        check(torch.equal(Gs, Gs.T), f"maecho_gram_cross (Rb, Rb) is not symmetric at {tag}")
+        err["maecho_gram_cross"] = max(err["maecho_gram_cross"], e)
+        reps = 3 if D > 10 ** 6 else 20
+        time_cases(torch, label, {"maecho_gram_cross": (
+            lambda: kern.maecho_gram_cross(Ra, Rb), lambda: ref.maecho_gram_cross_ref(Ra, Rb),
+            2.0 * ca * cb * D, 4.0 * ((ca + cb) * D + ca * cb))}, timings, reps)
+        library[("maecho_gram_cross", label)] = graph_ms(torch, lambda: torch.mm(Ra, Rb.T), reps)
+        print(f"[kernels] {label} torch.mm(Ra, Rb.T) (TF32 off): "
+              f"{library[('maecho_gram_cross', label)]:.4f} ms")
+        del Ra, Rb, G, Gr, Gs
+    for label, d, b in (("bench", 512, 64), ("W0", 784, 128), ("d_model", 896, 128)):
+        Q0 = torch.randn(d, d, device="cuda", generator=gen)
+        Q = Q0 @ Q0.T / d + torch.eye(d, device="cuda")
+        Xb = torch.randn(b, d, device="cuda", generator=gen)
+        Xb = Xb / torch.linalg.vector_norm(Xb, dim=-1, keepdim=True)
+        U = Q @ Xb.T                                   # block_rls_update's operands
+        A = torch.linalg.inv(torch.eye(b, device="cuda") + Xb @ U)
+        A = (0.5 * (A + A.T)).contiguous()
+        tag = f"{label} (d={d}, b={b})"
+        out, plain = kern.rank_downdate(Q, U, A), ref.rank_downdate_ref(Q, U, A)
+        out64 = Q.double() - U.double() @ A.double() @ U.double().T
+        e = (out - plain).abs().max().item()
+        e64 = (out.double() - out64).abs().max().item()
+        print(f"[kernels] {tag} rank_downdate max_abs_err {e:.3e}, against float64 "
+              f"{e64:.3e} (plain {(plain.double() - out64).abs().max().item():.3e}), "
+              f"tol 1e-3")
+        check(e <= 1e-3 and e64 <= 1e-3, f"rank_downdate disagrees at {tag}")
+        err["rank_downdate"] = max(err["rank_downdate"], e)
+        time_cases(torch, label, {"rank_downdate": (
+            lambda: kern.rank_downdate(Q, U, A), lambda: ref.rank_downdate_ref(Q, U, A),
+            downdate_flops(d, b),
+            4.0 * (2 * d * d + d * b + b * b))}, timings)
+        library[("rank_downdate", label)] = graph_ms(
+            torch, lambda: torch.addmm(Q, U @ A, U.T, alpha=-1), 50)
+        print(f"[kernels] {label} library: none (2 calls, torch.addmm(Q, U @ A, U.T, "
+              f"alpha=-1): {library[('rank_downdate', label)]:.4f} ms)")
+
+    data = generate(DatasetSpec("fidelity", n_train=6000, n_test=1200, latent=24,
+                                out_dim=784, seed=0))
+    X = torch.as_tensor(data["train_x"][:2048], device="cuda")
+    X = X / torch.linalg.vector_norm(X, dim=-1, keepdim=True).clamp_min(1e-6)
+
+    def chain():
+        Q = proj.null_projector_init(X.shape[1], device="cuda")
+        for Xb in X.reshape(-1, 128, X.shape[1]):
+            Q = ops.block_rls_update(Q, Xb, 1.0)
+        return Q
+
+    t0 = time.perf_counter()
+    Q, launches = count_launches(torch, kern, chain)
+    chained = {"t": time.perf_counter() - t0, "launches": launches,
+               "blocks": X.shape[0] // 128}
+    chained["diff"] = (Q - proj.null_projector_from_features(X, 1.0, 128)).abs().max().item()
+    return err, timings, library, chained
+
+
+def phase_large_n(torch, kern, ref):
+    """The reference's ``bench_largeN_agg`` grid on the card (one factored
+    leaf, fixed uniform α, no QP): chunked through B19 against unchunked
+    plain, with each side's device memory peak above its inputs and
+    outputs; N = 4096 chunked only; the QP at N = 512 and 4096, timed,
+    with its memory peak above G, against the same solve on the CPU."""
+    from repro_torch.core import qp
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+
+    def case(N, d, rank):
+        W = torch.randn(d, d, device="cuda", generator=gen) * 0.3
+        V = torch.randn(N, d, d, device="cuda", generator=gen) * 0.3
+        U = torch.linalg.qr(torch.randn(N, d, rank, device="cuda", generator=gen))[0]
+        s = torch.rand(N, rank, device="cuda", generator=gen) * 0.9 + 0.1
+        return W, V, {"U": U.contiguous(), "s": s}, torch.full((N,), 1.0 / N, device="cuda")
+
+    def chunked(W, V, P, alpha):
+        G, ctx = ops.maecho_streaming_gram_chunked(W, V, P, chunk=CHUNK, use_kernel=True)
+        return (G,) + ops.maecho_streaming_apply_chunked(alpha, ctx, eta=0.5, frac=0.5,
+                                                         norm=True)
+
+    def unchunked(W, V, P, alpha):
+        Wn = ref.maecho_update_ref_any(W, V, P, alpha, 0.5)
+        return ref.maecho_gram_ref(W, V, P), Wn, ref.maecho_v_update_ref(Wn, V, P, 0.5, True)
+
+    def measure(fn, *args):
+        """(outputs, wall s, peak bytes above inputs and outputs)."""
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        outs = fn(*args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return outs, wall, torch.cuda.max_memory_allocated() - base - sum(
+            x.numel() * x.element_size() for x in outs)
+
+    rows = {}
+    for N in (8, 64, 128, 512):
+        W, V, P, alpha = case(N, 256, 16)
+        (ch, t_ch, m_ch), launches = count_launches(
+            torch, kern, lambda: measure(chunked, W, V, P, alpha))
+        un, t_un, m_un = measure(unchunked, W, V, P, alpha)
+        nc = -(-N // CHUNK)
+        check(launches["maecho_gram_cross"] == nc * (nc + 1) // 2
+              and sum(launches.values()) == launches["maecho_gram_cross"],
+              f"largeN N={N}: launches {launches}")
+        eg = (ch[0] - un[0]).abs().max().item()
+        tol = GRAM_RTOL * un[0].abs().max().item()
+        ew = max((a - b).abs().max().item() for a, b in zip(ch[1:], un[1:]))
+        print(f"[largeN] N={N} 256x256 k=16 chunk={CHUNK}: chunked {t_ch * 1e3:.3f} ms, "
+              f"peak above inputs+outputs {m_ch / 1e6:.3f} MB ({launches['maecho_gram_cross']}"
+              f" B19 launches); unchunked plain {t_un * 1e3:.3f} ms, {m_un / 1e6:.3f} MB; "
+              f"G max_abs_err {eg:.3e} tol {tol:.3e}, W'/V' max_abs_err {ew:.3e} "
+              f"tol {AGG_ATOL:.0e}")
+        check(eg <= tol and ew <= AGG_ATOL, f"largeN N={N}: chunked disagrees with unchunked")
+        rows[N] = (t_ch, m_ch, t_un, m_un)
+        del W, V, P, ch, un
+    ch512, ch128 = rows[512][1], rows[128][1]
+    un512, un128 = rows[512][3], rows[128][3]
+    print(f"[largeN] chunked peak N=512 / N=128: {ch512 / ch128:.3f} (limit 1.25); unchunked "
+          f"peak N=512 / N=128: {un512 / un128:.3f} (at least 3); unchunked / chunked at "
+          f"N=512: {un512 / ch512:.3f} (printed beside the >= 4x the reference's bench "
+          f"asserts on XLA's temp bytes)")
+    check(ch512 <= 1.25 * ch128, "the chunked peak is not O(chunk)")
+    check(un512 >= 3 * un128, "the unchunked peak does not grow with N")
+    W, V, P, alpha = case(4096, 32, 8)
+    (ch, t_ch, m_ch), launches = count_launches(
+        torch, kern, lambda: measure(chunked, W, V, P, alpha))
+    check(all(bool(torch.isfinite(x).all()) for x in ch), "largeN N=4096 is not finite")
+    print(f"[largeN] N=4096 32x32 k=8 chunk={CHUNK}, chunked only: {t_ch * 1e3:.3f} ms, "
+          f"peak above inputs+outputs {m_ch / 1e6:.3f} MB, {launches['maecho_gram_cross']} "
+          f"B19 launches")
+    rows[4096] = (t_ch, m_ch, None, None)
+    del W, V, P, ch
+    for N, iters in ((512, 200), (4096, 30)):
+        X = torch.randn(N, min(N, 256), device="cuda", generator=gen) * 0.5
+        G = X @ X.T + 0.1 * torch.eye(N, device="cuda")
+        mask = torch.arange(N, device="cuda") % 10 != 3
+        del X
+        qp.solve_qp(G, 0.6, iters, mask)
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        a = qp.solve_qp(G, 0.6, iters, mask)
+        torch.cuda.synchronize()
+        t_qp, m_qp = time.perf_counter() - t0, torch.cuda.max_memory_allocated() - base
+        d = (a.cpu() - qp.solve_qp(G.cpu(), 0.6, iters, mask.cpu())).abs().max().item()
+        print(f"[largeN] QP N={N} (a tenth masked out), {iters} iterations: "
+              f"{t_qp * 1e3:.3f} ms, peak above G {m_qp / 1e6:.3f} MB (G {G.numel() * 4 / 1e6:.3f}"
+              f" MB); max |alpha - the same solve on the CPU| {d:.3e} tol 1e-5")
+        check(d <= 1e-5, f"the QP on the card disagrees with the CPU at N={N}")
+        check(bool((a[~mask] == 0).all()), f"the QP gives weight to masked-out clients at N={N}")
+        del G, a
+    return rows
+
+
+def phase_chunked_mlp(torch, kern, m64):
+    """256 synthetic clients with factored rank-78 projectors through the
+    chunked kernel aggregate (chunk 64, τ = 2), against the unchunked
+    kernel and oracle aggregates; then phase 9's 64 dense clients at
+    chunk 16 against the oracle."""
+    from repro_torch.core.maecho import MAEchoConfig, maecho_aggregate
+
+    t0 = time.perf_counter()
+    clients, projs = synthetic_mlp_clients(torch, 256, 10, RANK)
+    r = {"t_setup": time.perf_counter() - t0}
+
+    def cfg(chunk):
+        return MAEchoConfig(tau=2, eta=0.5, mu=20.0, client_chunk=chunk)
+
+    r["before_gb"], r["before_gc_gb"] = allocated_gb(torch)
+    (agg, r["t_agg"], r["spans"]), r["launches"] = count_launches(
+        torch, kern, lambda: timed_calls(
+            torch, lambda: maecho_aggregate(clients, projs, cfg(CHUNK), backend="kernel")))
+    r["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    t1 = time.perf_counter()
+    unchunked, r["launches_unchunked"] = count_launches(
+        torch, kern, lambda: maecho_aggregate(clients, projs, cfg(0), backend="kernel"))
+    r["diff_kernel"] = max_diff(agg, unchunked)
+    r["diff_oracle"] = max_diff(agg, maecho_aggregate(clients, projs, cfg(0), backend="oracle"))
+    torch.cuda.synchronize()
+    r["t_check"] = time.perf_counter() - t1
+    del clients, projs, agg, unchunked
+
+    t1 = time.perf_counter()
+    agg, r["launches16"] = count_launches(torch, kern, lambda: maecho_aggregate(
+        m64["clients"], m64["projs"], cfg(16), backend="kernel"))
+    r["diff16"] = max_diff(agg, maecho_aggregate(m64["clients"], m64["projs"], cfg(0),
+                                                 backend="oracle"))
+    torch.cuda.synchronize()
+    r["t16"] = time.perf_counter() - t1
+    return r
+
+
+def phase_llm_chunked(torch, kern, lm, lf):
+    """The LLM silos with phase 10's factored projectors through
+    ``aggregate_llm`` at client_chunk 1, τ = 2 (timed, launches counted,
+    peak memory), against the unchunked kernel aggregate at τ = 2."""
+    from repro_torch.core.maecho import MAEchoConfig
+    from repro_torch.fl.llm_adapter import aggregate_llm
+
+    def run(chunk):
+        return aggregate_llm(lm["cfg"], lm["silos"], lf["projs"],
+                             MAEchoConfig(tau=2, eta=0.5, mu=20.0, client_chunk=chunk),
+                             backend="kernel")
+
+    r = {}
+    r["before_gb"], r["before_gc_gb"] = allocated_gb(torch)
+    (agg, r["t_agg"], r["spans"]), r["launches"] = count_launches(
+        torch, kern, lambda: timed_calls(torch, lambda: run(1)))
+    r["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    t1 = time.perf_counter()
+    r["diff"] = tree_max_diff(agg, run(0))
+    torch.cuda.synchronize()
+    r["t_check"] = time.perf_counter() - t1
+    return r
 
 
 def allocated_gb(torch) -> tuple:
@@ -1218,7 +1542,7 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch.kernels import build, ref
-    from repro_torch.kernels import maecho_gram, maecho_update, maecho_v_update
+    from repro_torch.kernels import maecho_gram, maecho_update, maecho_v_update, rank_update
 
     kern = SimpleNamespace(
         compressed_residual=maecho_gram.compressed_residual,
@@ -1241,7 +1565,9 @@ def main() -> None:
         maecho_gram_left_stacked=maecho_gram.maecho_gram_left_stacked,
         maecho_update_left_stacked=maecho_update.maecho_update_left_stacked,
         maecho_v_update_factored_stacked=maecho_v_update.maecho_v_update_factored_stacked,
-        maecho_v_update_left_stacked=maecho_v_update.maecho_v_update_left_stacked)
+        maecho_v_update_left_stacked=maecho_v_update.maecho_v_update_left_stacked,
+        maecho_gram_cross=maecho_gram.maecho_gram_cross,
+        rank_downdate=rank_update.rank_downdate)
     kern.all = [getattr(kern, n) for n in KERNELS]
 
     smi = subprocess.run(
@@ -1281,6 +1607,50 @@ def main() -> None:
           f"{m64['shapes']}")
     report_split("the N=64 dense MLP kernel aggregate", m64["t_agg"], m64["spans"], DENSE)
     check_path("mlp N=64", m64, DENSE, TAU_CHECK)
+
+    t0 = time.perf_counter()
+    e, t, library, chained = phase_chunk_kernels(torch, kern, ref)
+    err.update(e)
+    timings.update(t)
+    print(f"[phase] chunk kernels {time.perf_counter() - t0:.3f} s (the W0 projector chained "
+          f"through ops.block_rls_update {chained['t']:.3f} s)")
+    print(f"[launches] block_rls_update chain ({chained['blocks']} blocks of 128 rows, "
+          f"784 features): {chained['launches']}; max |Q - null_projector_from_features| "
+          f"{chained['diff']:.3e} tol {AGG_ATOL:.0e}")
+    for name in KERNELS:
+        want = chained["blocks"] if name in DOWNDATE else 0
+        check(chained["launches"][name] == want, f"{name} ran {chained['launches'][name]} "
+              f"times in the block_rls_update chain, expected {want}")
+    check(chained["diff"] <= AGG_ATOL, "the chained block_rls_update projector disagrees")
+
+    t0 = time.perf_counter()
+    phase_large_n(torch, kern, ref)
+    print(f"[phase] largeN grid {time.perf_counter() - t0:.3f} s")
+
+    t0 = time.perf_counter()
+    ck = phase_chunked_mlp(torch, kern, m64)
+    print(f"[phase] chunked MLP {time.perf_counter() - t0:.3f} s: 256 clients set up "
+          f"{ck['t_setup']:.3f} s, aggregate (kernel, client_chunk={CHUNK}, tau=2, timed) "
+          f"{ck['t_agg']:.3f} s, unchunked kernel and oracle aggregates {ck['t_check']:.3f} s; "
+          f"64 dense clients at client_chunk=16 (kernel and oracle) {ck['t16']:.3f} s")
+    report_split(f"the N=256 factored (k={RANK}) chunked kernel aggregate", ck["t_agg"],
+                 ck["spans"], CROSS)
+    print(f"[memory] chunked MLP N=256: allocated before {ck['before_gb']:.3f} GB, "
+          f"{ck['before_gc_gb']:.3f} GB after gc.collect(), peak in it {ck['peak_gb']:.3f} GB")
+    for label, launches, ran, n in (("N=256 factored, chunk 64", ck["launches"], CROSS, 10),
+                                    ("N=256 factored, unchunked", ck["launches_unchunked"],
+                                     FACTORED, 1),
+                                    ("N=64 dense, chunk 16", ck["launches16"], CROSS, 10)):
+        print(f"[launches] chunked MLP {label}: {launches}")
+        for name in KERNELS:       # tau = 2 on two kernel leaves; n chunk pairs each
+            want = 2 * 2 * n if name in ran else 0
+            check(launches[name] == want, f"{name} ran {launches[name]} times on the chunked "
+                  f"MLP path ({label}), expected {want}")
+    print(f"[check] chunked MLP N=256: max |dW| against the unchunked kernel aggregate "
+          f"{ck['diff_kernel']:.3e}, against the oracle {ck['diff_oracle']:.3e}; N=64 dense "
+          f"chunk 16 against the oracle {ck['diff16']:.3e}; tol {AGG_ATOL:.0e}")
+    check(max(ck["diff_kernel"], ck["diff_oracle"], ck["diff16"]) <= AGG_ATOL,
+          "the chunked MLP aggregate disagrees")
 
     def device_ms(names, label_suffix="", tau=TAU):
         return tau * sum(timings[(n, l + label_suffix)][0]
@@ -1371,7 +1741,25 @@ def main() -> None:
     check(all(math.isfinite(x) for v in lf["ppl"].values() for x in v),
           "a factored LLM perplexity is not finite")
     check_llm_path(lf, STACKED_LEFT, "llm factored")
-    del lm["silos"], lm["projs"]
+
+    t0 = time.perf_counter()
+    lc = phase_llm_chunked(torch, kern, lm, lf)
+    print(f"[phase] llm chunked path {time.perf_counter() - t0:.3f} s: aggregate (kernel, "
+          f"client_chunk=1, tau=2, timed) {lc['t_agg']:.3f} s, unchunked kernel aggregate "
+          f"(tau=2) {lc['t_check']:.3f} s")
+    report_split("the chunked factored LLM kernel aggregate", lc["t_agg"], lc["spans"], CROSS)
+    print(f"[memory] llm chunked: allocated before {lc['before_gb']:.3f} GB, "
+          f"{lc['before_gc_gb']:.3f} GB after gc.collect(), peak in it {lc['peak_gb']:.3f} GB "
+          f"(unchunked factored route at tau={LLM_TAU}: {lf['peak_gb']:.3f} GB)")
+    print(f"[launches] llm chunked path: {lc['launches']}")
+    for name in KERNELS:
+        want = 2 * 3 if name in CROSS else 0
+        check(lc["launches"][name] == want, f"{name} ran {lc['launches'][name]} times on "
+              f"the chunked LLM path, expected {want}")
+    print(f"[check] llm chunked: max |dW| against the unchunked kernel aggregate at tau=2 "
+          f"over all leaves {lc['diff']:.3e} tol {AGG_ATOL:.0e}")
+    check(lc["diff"] <= AGG_ATOL, "the chunked LLM aggregate disagrees with the unchunked one")
+    del lm["silos"], lm["projs"], lf["projs"]
 
     t0 = time.perf_counter()
     bench = phase_bench_stacked_agg(torch, kern)
@@ -1388,7 +1776,8 @@ def main() -> None:
               f"with the oracle aggregate")
 
     source = {**{n: r for n in DENSE}, **{n: f for n in FACTORED}, **{n: sc for n in DIAG},
-              **{n: lm for n in STACKED + STACKED_DIAG}, **{n: lf for n in STACKED_LEFT}}
+              **{n: lm for n in STACKED + STACKED_DIAG}, **{n: lf for n in STACKED_LEFT},
+              **{n: ck for n in CROSS}, **{n: chained for n in DOWNDATE}}
     label = {**{n: f"W0k{RANK}" for n in FACTORED}, **{n: "w_gate" for n in STACKED},
              **{n: "w_down" for n in STACKED_DIAG}, **{n: "w_gate" for n in STACKED_LEFT}}
     rows = []
@@ -1399,7 +1788,8 @@ def main() -> None:
                      "replaces": REPLACES[name],
                      "launches": source[name]["launches"][name],
                      "max_abs_err": err[name], "ms": ms, "plain_ms": plain,
-                     "bound_ms": b, "bound_by": by, "library_ms": None})
+                     "bound_ms": b, "bound_by": by,
+                     "library_ms": library.get((name, "W0")) if name in CROSS else None})
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -30,6 +30,11 @@ Backends (:func:`maecho_aggregate`'s ``backend``):
     leaves and 1-D biases run the oracle, batched over layer axes.
   - ``"auto"``: the same routing without fallback warnings.
 
+``MAEchoConfig.client_chunk`` > 0 (the large-cohort mode) sweeps every
+eligible leaf's client axis in chunks on any route (``kernels.ops``'
+chunked pipeline): at most two chunks' residuals are alive, and
+unstacked kernel-route leaves contract chunk pairs with B19.
+
 Routing is compiled once by ``core.plan.compile_plan``; the τ-loop
 below is a plain Python loop over that plan.  With
 ``MAEchoConfig.qp_batched`` (default) each iteration stacks every
@@ -70,7 +75,8 @@ class MAEchoConfig:
     # the reference's Pallas tile edge; no effect here — the CUDA
     # kernels tile at their own 32-wide edge and mask ragged edges
     kernel_block: int = 0
-    client_chunk: int = 0         # client-axis chunking (ROADMAP A8)
+    # client-axis chunk of the Gram/apply sweeps; 0 = unchunked.  Clamped to N per leaf at plan time.
+    client_chunk: int = 0
 
 
 # --------------------------------------------------------------------------
@@ -174,11 +180,28 @@ def _oracle_apply(W, V, P, R, alpha, convention: str, levels: int, *,
             Vn.reshape(tuple(Vn.shape[:1]) + lead + tuple(Vn.shape[2:])))
 
 
+def _leaf_gram_chunked(W, V, P, lp: LeafPlan, convention: str):
+    """Gram half of a leaf with a client chunk: the Gram accumulates
+    over chunk pairs (O(chunk) residuals alive), on the "oi" kernel
+    layout whatever the route; only unstacked kernel-route leaves
+    contract the pairs with B19."""
+    if lp.levels:
+        Wf, Vf, Pf, lead = _flatten_stack(W, V, P, lp.levels)
+        G, ctx = ops.maecho_streaming_gram_chunked_stacked(
+            *_to_kernel_layout(Wf, Vf, Pf, convention, levels=1), chunk=lp.client_chunk)
+        return G.reshape(lead + tuple(G.shape[-2:])), (lead, ctx)
+    return ops.maecho_streaming_gram_chunked(
+        *_to_kernel_layout(W, V, P, convention), chunk=lp.client_chunk,
+        use_kernel=lp.route == "kernel")
+
+
 def _leaf_gram(W, V, P, lp: LeafPlan, convention: str):
     """Gram phase for one leaf on its compiled route: returns ``(G,
     ctx)`` — the Gram, (lead…, N, N) on a stacked leaf, and the reuse
     payload for :func:`_leaf_apply` (the oracle's residual, or the
     kernel pipeline's context)."""
+    if lp.client_chunk:
+        return _leaf_gram_chunked(W, V, P, lp, convention)
     if lp.route == "oracle":
         return _oracle_gram(W, V, P, convention, lp.levels)
     if lp.route == "kernel":
@@ -189,6 +212,23 @@ def _leaf_gram(W, V, P, lp: LeafPlan, convention: str):
     return G.reshape(lead + tuple(G.shape[-2:])), (lead, ctx)
 
 
+def _apply_stacked(apply, alpha, ctx, kw):
+    """A stacked leaf's update half through ``apply`` on its flattened
+    layer axis, reshaped back to the leaf's lead axes."""
+    lead, inner = ctx
+    W_new, V_new = apply(alpha.reshape(-1, alpha.shape[-1]), inner, **kw)
+    return (W_new.reshape(lead + tuple(W_new.shape[1:])),
+            V_new.reshape(tuple(V_new.shape[:1]) + lead + tuple(V_new.shape[2:])))
+
+
+def _leaf_apply_chunked(alpha, ctx, lp: LeafPlan, kw):
+    """Update half of a leaf with a client chunk, on the context of
+    :func:`_leaf_gram_chunked` ("oi" layout)."""
+    if lp.levels:
+        return _apply_stacked(ops.maecho_streaming_apply_chunked_stacked, alpha, ctx, kw)
+    return ops.maecho_streaming_apply_chunked(alpha, ctx, **kw)
+
+
 def _leaf_apply(W, V, P, ctx, alpha, lp: LeafPlan, cfg: MAEchoConfig,
                 convention: str):
     """Apply phase for one leaf: Eq. 7 then Eq. 11.  ``alpha`` carries
@@ -196,16 +236,14 @@ def _leaf_apply(W, V, P, ctx, alpha, lp: LeafPlan, cfg: MAEchoConfig,
     (W', V')."""
     kw = dict(eta=cfg.eta, frac=cfg.mu / (1.0 + cfg.mu), norm=cfg.norm,
               eps=cfg.eps)
-    if lp.route == "oracle":
+    if lp.client_chunk:
+        W_new, V_new = _leaf_apply_chunked(alpha, ctx, lp, kw)
+    elif lp.route == "oracle":
         return _oracle_apply(W, V, P, ctx, alpha, convention, lp.levels, **kw)
-    if lp.route == "kernel":
+    elif lp.route == "kernel":
         W_new, V_new = ops.maecho_streaming_apply(alpha, ctx, **kw)
     else:
-        lead, inner = ctx
-        W_new, V_new = ops.maecho_streaming_apply_stacked(
-            alpha.reshape(-1, alpha.shape[-1]), inner, **kw)
-        W_new = W_new.reshape(lead + tuple(W_new.shape[1:]))
-        V_new = V_new.reshape(tuple(V_new.shape[:1]) + lead + tuple(V_new.shape[2:]))
+        W_new, V_new = _apply_stacked(ops.maecho_streaming_apply_stacked, alpha, ctx, kw)
     if convention == "io":
         return W_new.transpose(-1, -2), V_new.transpose(-1, -2)
     return W_new, V_new
@@ -289,13 +327,17 @@ def dispatch_summary(W0: Pytree, P: Pytree, levels_tree: Pytree,
                      cfg: MAEchoConfig = MAEchoConfig(),
                      convention: str = "oi", backend: str = "oracle"):
     """Per-leaf compute-path report, a view of the compiled plan.
-    ``P`` is the *stacked* (leading client axis) projector tree; ``cfg``
-    does not change routing in this port (kept for the reference's
-    signature).
+    ``P`` is the *stacked* (leading client axis) projector tree; of
+    ``cfg`` only ``client_chunk`` enters the plan.
     Returns ``(per_leaf, counts)``: ``(path, levels, route)`` per leaf
-    and route → leaf count."""
-    plan = compile_plan(W0, P, levels_tree, convention, backend)
-    return plan.per_leaf(), plan.route_counts()
+    and route → leaf count, plus ``"chunked"`` (the leaves that sweep
+    their client axis in chunks) when chunking is on."""
+    plan = compile_plan(W0, P, levels_tree, convention, backend, cfg.client_chunk)
+    counts = plan.route_counts()
+    chunked = sum(1 for lp in plan.leaves if lp.client_chunk)
+    if chunked:
+        counts["chunked"] = chunked
+    return plan.per_leaf(), counts
 
 
 def _normalize_client_mask(mask, W0: Pytree, n_clients: int) -> list:
@@ -357,9 +399,6 @@ def maecho_aggregate(
                     Inputs are moved there.
     """
     validate_backend(backend)
-    if cfg.client_chunk:
-        raise NotImplementedError(
-            "MAEchoConfig.client_chunk is not ported yet (ROADMAP item A8)")
     dev = resolve_device(device)
 
     def to_dev(tree):
@@ -383,7 +422,7 @@ def maecho_aggregate(
         levels_tree = stack_levels
     V0 = trees.tree_map(lambda *xs: torch.stack(xs, 0), *client_weights)
     P = trees.tree_map(lambda *xs: torch.stack(xs, 0), *projections)
-    plan = compile_plan(W0, P, levels_tree, convention, backend)
+    plan = compile_plan(W0, P, levels_tree, convention, backend, cfg.client_chunk)
 
     W = leaves_w
     V = trees.flatten_up_to(treedef, V0)

@@ -9,6 +9,11 @@ the capped simplex by bisection — the same iteration rule, counts and
 fp32 arithmetic as ``repro.core.qp``.  Everything stays on the Gram's
 device: no value is read back to the host inside the solve.  Every
 solver is batched over leading axes (one (L, N, N) stack → (L, N)).
+The masked product is (Gm α)ᵢ = maskᵢ·(G (mask·α))ᵢ, so no masked
+(N, N) copy of G is made.  ``row_block`` (the reference's blocked G·α
+sweep for N in the thousands) is taken for the reference's signature
+only: eager PyTorch holds G whole either way, and a blocked sweep
+measured slower on the card (PERF.md).
 """
 from __future__ import annotations
 
@@ -47,16 +52,17 @@ def project_capped_simplex(x, C: float, iters: int = 60, mask=None):
 
 
 def _pgd_masked(G, mask, C: float, iters: int):
-    """Masked accelerated PGD over a batch: G (..., N, N) with arbitrary
-    values in padded rows/columns (zeroed here), mask (..., N) boolean.
-    Returns α (..., N) with exact zeros on padded coordinates."""
-    pair = mask[..., :, None] & mask[..., None, :]
+    """Masked accelerated PGD over a batch: G (..., N, N), mask (..., N)
+    boolean — or (N,) for every QP of the batch.  Masked-out rows and
+    columns of G never reach α.  Returns α (..., N) with exact zeros on
+    masked-out coordinates."""
+    G = G.float()
+    mask_f = mask.float()
     zero = torch.zeros((), device=G.device)
-    Gm = torch.where(pair, G.float(), zero)
-    # Lipschitz bound: masked row-sum norm (padded rows sum to 0)
-    L = Gm.abs().sum(-1).amax(-1).clamp_min(1e-12)
+    # Lipschitz bound: masked row-sum norm
+    L = ((G.abs() @ mask_f[..., None])[..., 0] * mask_f).amax(-1).clamp_min(1e-12)
     step = (1.0 / L)[..., None]
-    n = mask.float().sum(-1).clamp_min(1.0)
+    n = mask_f.sum(-1).clamp_min(1.0)
     a = project_capped_simplex(
         torch.where(mask, (1.0 / n)[..., None], zero), C, mask=mask)
     y = a
@@ -64,7 +70,7 @@ def _pgd_masked(G, mask, C: float, iters: int):
     # the host, as the reference's scalar carry does
     t = np.float32(1.0)
     for _ in range(iters):
-        grad = (Gm @ y[..., None])[..., 0]
+        grad = (G @ (y * mask_f)[..., None])[..., 0] * mask_f
         a_new = project_capped_simplex(y - step * grad, C, mask=mask)
         t_new = np.float32(0.5) * (np.float32(1.0)
                                    + np.sqrt(np.float32(1.0) + np.float32(4.0) * t * t))
@@ -73,24 +79,32 @@ def _pgd_masked(G, mask, C: float, iters: int):
     return a
 
 
-def solve_qp(G, C: float, iters: int = 300, mask=None):
+def solve_qp(G, C: float, iters: int = 300, mask=None, row_block: int = 0):
     """Accelerated PGD for min ½αᵀGα on the capped simplex.  G (N, N)
     PSD; ``mask`` (optional (N,) boolean) restricts the simplex to the
-    masked-in clients (excluded coordinates come back exactly 0)."""
+    masked-in clients (excluded coordinates come back exactly 0);
+    ``row_block`` changes nothing (see the module docstring)."""
     if mask is None:
         mask = torch.ones(G.shape[-1], dtype=torch.bool, device=G.device)
     return _pgd_masked(G, torch.as_tensor(mask, dtype=torch.bool,
                                           device=G.device), C, iters)
 
 
+def solve_qp_blocked(G, C: float, iters: int = 300, mask=None,
+                     row_block: int = 64):
+    """The reference's large-N entry point: :func:`solve_qp` itself."""
+    return solve_qp(G, C, iters, mask)
+
+
 def solve_qp_batched(G, C: float, iters: int = 300, n_valid=None,
-                     mask=None):
+                     mask=None, row_block: int = 0):
     """One batched accelerated-PGD solve for a stack of QPs.
 
     G: (L, Nmax, Nmax).  ``n_valid`` (L,) gives each QP's true size
     (``None``: all full); ``mask`` (L, Nmax) boolean overrides it with
     arbitrary per-QP validity.  Masked-out α entries come back exactly
-    0.  Same iteration rule as :func:`solve_qp`.  Returns (L, Nmax).
+    0.  Same iteration rule as :func:`solve_qp`; ``row_block`` changes
+    nothing, as there.  Returns (L, Nmax).
     """
     L, Nmax = G.shape[0], G.shape[-1]
     if mask is not None:

@@ -35,7 +35,8 @@ SOURCES = ("maecho_gram", "maecho_update", "maecho_v_update",
            "maecho_gram_stacked", "maecho_update_stacked", "maecho_v_update_stacked",
            "maecho_gram_diag_stacked", "maecho_update_diag_stacked",
            "maecho_v_update_diag_stacked", "maecho_gram_left_stacked",
-           "maecho_update_left_stacked", "maecho_v_update_factored_stacked")
+           "maecho_update_left_stacked", "maecho_v_update_factored_stacked",
+           "maecho_gram_cross", "rank_downdate")
 
 _libs: dict[str, ctypes.CDLL] = {}
 

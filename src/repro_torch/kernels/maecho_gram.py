@@ -12,6 +12,11 @@ of ``maecho_gram_left_stacked``) and B12
 (``csrc/maecho_gram_diag_stacked.cu``, port of
 ``maecho_gram_diag_stacked``).
 
+And B19 (``csrc/maecho_gram_cross.cu``, port of ``maecho_gram_cross``):
+the cross-Gram block ⟨Raᵢ, Rbⱼ⟩ of two client chunks' flat residual rows,
+the pair contraction of the client-chunked Gram (``ops``' chunked
+pipeline).
+
 Every Gram kernel takes any number of clients N: up to 54 one CTA per
 tile parks them all, above that the client axis is cut into blocks of at
 most 27 and one CTA takes each pair of blocks (``csrc/maecho_tile.cuh``).
@@ -232,3 +237,42 @@ def maecho_gram_left_stacked(A, UT):
 
 
 maecho_gram_left_stacked.launches = 0
+
+_CROSS_SIGS = {
+    "maecho_gram_cross_workspace_floats": (ctypes.c_longlong, [ctypes.c_int] * 2
+                                           + [ctypes.c_longlong]),
+    "maecho_gram_cross_launch": (ctypes.c_int, [ctypes.c_void_p] * 4
+                                 + [ctypes.c_int] * 2 + [ctypes.c_longlong]
+                                 + [ctypes.c_void_p]),
+}
+
+
+def maecho_gram_cross(Ra, Rb):
+    """B19, the wrapper of ``csrc/maecho_gram_cross.cu`` (port of
+    ``repro/kernels/maecho_gram.py::maecho_gram_cross``): the fp32
+    (ca, cb) block G[i, j] = ⟨Raᵢ, Rbⱼ⟩ of two client chunks' flat
+    residual rows Ra (ca, D) and Rb (cb, D) float32 — any ca, cb and D
+    (the ragged end of D is masked, not padded); Ra and Rb may be the
+    same tensor."""
+    if Ra.device.type == "cpu":
+        return ref.maecho_gram_cross_ref(Ra, Rb)
+    build.check_f32_cuda("maecho_gram_cross", Ra=Ra, Rb=Rb)
+    build.require(Ra.dim() == 2 and Rb.dim() == 2 and Ra.shape[1] == Rb.shape[1],
+                  f"maecho_gram_cross: shapes Ra {tuple(Ra.shape)}, Rb {tuple(Rb.shape)} "
+                  f"do not match (ca, D), (cb, D)")
+    (ca, D), cb = Ra.shape, Rb.shape[0]
+    build.require(min(ca, cb, D) >= 1 and ca * cb < 2 ** 31,
+                  f"maecho_gram_cross: ca={ca}, cb={cb}, D={D}: need each >= 1 "
+                  f"and ca*cb < 2**31")
+    lib = build.load("maecho_gram_cross", _CROSS_SIGS)
+    ws = torch.empty(lib.maecho_gram_cross_workspace_floats(ca, cb, D),
+                     dtype=torch.float32, device=Ra.device)
+    G = torch.empty((ca, cb), dtype=torch.float32, device=Ra.device)
+    err = lib.maecho_gram_cross_launch(build.ptr(Ra), build.ptr(Rb), build.ptr(ws),
+                                       build.ptr(G), ca, cb, D, build.stream())
+    build.check(err, "maecho_gram_cross")
+    maecho_gram_cross.launches += 1
+    return G
+
+
+maecho_gram_cross.launches = 0

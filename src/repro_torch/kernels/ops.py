@@ -27,15 +27,30 @@ and hands them on, as the unstacked factored branch does), stacked
 scalars (N, L) and diagonals (N, L, in) B12/B15/B18 (the scalar
 broadcast once to (N, L, in) in the Gram half), one launch each for all
 L layers.
+
+Leaves with a client chunk (``MAEchoConfig.client_chunk``, the
+large-cohort mode) take :func:`maecho_streaming_gram_chunked` /
+:func:`maecho_streaming_apply_chunked` and their ``_stacked`` forms: the
+(N, N) Gram is assembled from chunk-pair blocks with at most two chunks'
+residuals alive at once, and Eq. 7 / Eq. 11 sweep the chunks again, so
+the (N, out, in) residual never exists.  The residuals and the apply are
+torch products, as the reference leaves them to XLA; unstacked
+kernel-route leaves contract each chunk pair with B19
+(:func:`maecho_gram_cross`), every other chunked leaf with a torch
+product.  The last chunk is cut short instead of padded (B19 takes two
+chunk sizes).  :func:`rank_downdate` (B20) and :func:`block_rls_update`
+are the block-RLS entry points.
 """
 from __future__ import annotations
 
 import warnings
 
+import torch
+
 from repro_torch.core.plan import proj_kind
 from repro_torch.kernels import ref
 from repro_torch.kernels.maecho_gram import (compressed_residual, maecho_gram,
-                                             maecho_gram_diag,
+                                             maecho_gram_cross, maecho_gram_diag,
                                              maecho_gram_diag_stacked,
                                              maecho_gram_left,
                                              maecho_gram_left_stacked,
@@ -51,6 +66,7 @@ from repro_torch.kernels.maecho_v_update import (maecho_v_update,
                                                  maecho_v_update_factored,
                                                  maecho_v_update_factored_stacked,
                                                  maecho_v_update_stacked)
+from repro_torch.kernels.rank_update import block_rls_update, rank_downdate
 
 # below this edge a leaf runs the plain oracle (the reference's tile
 # rule; core.plan's routing keys off the same constant)
@@ -150,3 +166,131 @@ def maecho_streaming_apply_stacked(alpha, ctx, *, eta: float = 1.0,
         return Wn, maecho_v_update_factored_stacked(Wn, V, U, s, frac, norm, eps, UT=UT)
     Wn = maecho_update_diag_stacked(W, V, P, alpha, eta)
     return Wn, maecho_v_update_diag_stacked(Wn, V, P, frac, norm, eps)
+
+
+# --------------------------------------------------------------------------
+# client-chunked pipeline (the reference's _chunked_* family)
+# --------------------------------------------------------------------------
+def _chunks(N: int, chunk: int) -> list:
+    """[start, stop) client ranges of ``chunk`` clients; the last may be
+    short."""
+    return [(a, min(a + chunk, N)) for a in range(0, N, chunk)]
+
+
+def _take(P, a: int, b: int):
+    """Clients [a, b) of a stacked projector (factored dicts per entry)."""
+    return {k: v[a:b] for k, v in P.items()} if isinstance(P, dict) else P[a:b]
+
+
+def _chunked_resid(W, Va, Pa, kind: str):
+    """Rᵢ = (W − Vᵢ)Pᵢ in fp32 for one client chunk, any projector kind
+    in the "oi" layout; a stacked leaf's layer axis rides after the client
+    axis.  The only place the chunked pipeline forms residual rows —
+    (chunk, […,] out, in), never the whole client axis."""
+    delta = (W[None] - Va).float()
+    if kind == "full":
+        return delta @ Pa.float()
+    if kind == "diag":
+        return delta * Pa.float()[..., None, :]
+    if kind == "scalar":
+        return delta * Pa.float()[..., None, None]
+    U = Pa["U"].float()
+    A = (delta @ U) * Pa["s"].float()[..., None, :]
+    return A @ U.transpose(-1, -2)
+
+
+def _pair_stacked(Ra, Rb):
+    """⟨Rₐ, R_b⟩ per layer: (ca, L, D) × (cb, L, D) → (L, ca, cb), one
+    batched product (the reference's layer-batched dot_general)."""
+    return Ra.transpose(0, 1) @ Rb.permute(1, 2, 0)
+
+
+def _chunked_gram_core(W, V, P, kind: str, chunk: int, pair):
+    """Triangular chunk-pair sweep: the (…, N, N) Gram from (chunk,
+    chunk) blocks with at most two chunks' residuals alive — row chunk
+    a's residual is formed once and held across its row, each column
+    chunk's is dropped after its pair, and the strict lower triangle
+    mirrors the upper (an (a, a) block equals its transpose bit for
+    bit)."""
+    N = V.shape[0]
+    lead = 2 if W.dim() == 3 else 1
+    shape = tuple(W.shape[:1]) * (lead - 1) + (N, N)
+    G = torch.empty(shape, dtype=torch.float32, device=W.device)
+
+    def resid(a, b):
+        R = _chunked_resid(W, V[a:b], _take(P, a, b), kind)
+        return R.reshape(tuple(R.shape[:lead]) + (-1,))
+
+    bounds = _chunks(N, chunk)
+    for ia, (a0, a1) in enumerate(bounds):
+        Ra = resid(a0, a1)
+        G[..., a0:a1, a0:a1] = pair(Ra, Ra)
+        for b0, b1 in bounds[ia + 1:]:
+            blk = pair(Ra, resid(b0, b1))
+            G[..., a0:a1, b0:b1] = blk
+            G[..., b0:b1, a0:a1] = blk.transpose(-1, -2)
+        del Ra
+    return G
+
+
+def _chunked_apply_core(alpha, W, V, P, kind: str, chunk: int, *, eta: float,
+                        frac: float, norm: bool, eps: float):
+    """Chunk-wise Eq. 7 then Eq. 11: the Eq. 7 step accumulates over the
+    chunk residuals of the original W, then a second sweep rebuilds each
+    chunk's anchors from W'.  ``alpha`` is (N,), or (L, N) on a stacked
+    leaf.  Returns (W', V')."""
+    N = V.shape[0]
+    af = alpha.float()
+    acc = torch.zeros(W.shape, dtype=torch.float32, device=W.device)
+    for a0, a1 in _chunks(N, chunk):
+        Ra = _chunked_resid(W, V[a0:a1], _take(P, a0, a1), kind)
+        if W.dim() == 3:
+            acc += torch.einsum("la,aloi->loi", af[:, a0:a1], Ra)
+        else:
+            acc += torch.tensordot(af[a0:a1], Ra, dims=([0], [0]))
+        del Ra
+    W_new = (W.float() - 2.0 * eta * acc).to(W.dtype)
+    del acc
+    V_new = torch.empty_like(V)
+    for a0, a1 in _chunks(N, chunk):
+        Va, Pa = V[a0:a1], _take(P, a0, a1)
+        u = (W_new[None] - Va).float() - frac * _chunked_resid(W_new, Va, Pa, kind)
+        if norm:
+            u = u / torch.linalg.vector_norm(u, dim=-1, keepdim=True).clamp_min(eps)
+        V_new[a0:a1] = (Va.float() + u).to(V.dtype)
+    return W_new, V_new
+
+
+def maecho_streaming_gram_chunked(W, V, P, *, chunk: int, use_kernel: bool = False):
+    """Client-chunked Gram half, the contract of
+    :func:`maecho_streaming_gram`: ``(G, ctx)`` with the (N, N) Gram
+    accumulated over chunk pairs, so at most two chunks' residuals
+    (O(chunk·out·in)) are alive.  ``use_kernel`` contracts each pair with
+    B19 (:func:`maecho_gram_cross`), else with its plain version.  "oi"
+    layout."""
+    kind = proj_kind(P)
+    G = _chunked_gram_core(W, V, P, kind, chunk,
+                           maecho_gram_cross if use_kernel else ref.maecho_gram_cross_ref)
+    return G, (kind, W, V, P, chunk)
+
+
+def maecho_streaming_apply_chunked(alpha, ctx, *, eta: float = 1.0, frac: float = 0.5,
+                                   norm: bool = False, eps: float = 1e-12):
+    """Chunked update half on the context from
+    :func:`maecho_streaming_gram_chunked`.  Returns ``(W', V')``."""
+    kind, W, V, P, chunk = ctx
+    return _chunked_apply_core(alpha, W, V, P, kind, chunk, eta=eta, frac=frac,
+                               norm=norm, eps=eps)
+
+
+def maecho_streaming_gram_chunked_stacked(W, V, P, *, chunk: int):
+    """Stacked client-chunked Gram half: W (L, out, in), V (N, L, out, in),
+    P stacked per kind.  Returns the (L, N, N) Grams (pair blocks batch
+    the layer axis through one torch product) and the apply context."""
+    kind = proj_kind(P, 1)
+    return _chunked_gram_core(W, V, P, kind, chunk, _pair_stacked), (kind, W, V, P, chunk)
+
+
+# the stacked update half is the same sweep: ``alpha`` is then the (L, N)
+# stack of per-layer solves
+maecho_streaming_apply_chunked_stacked = maecho_streaming_apply_chunked

@@ -11,6 +11,8 @@ factors, as the kernels B2/B5/B8 do; the diagonal-only ones take the
 dense, diagonal and factored forms with a layer axis (W (L, out, in), V
 and the projectors (N, L, …), α (L, N)), as B10/B13/B16, B12/B15/B18 and
 B11/B14/B17 take them: batched products over L, no loop over layers.
+Last come the client-chunked pipeline's cross-Gram of two chunks'
+residual rows (B19) and the block-RLS projector downdate (B20).
 """
 from __future__ import annotations
 
@@ -222,3 +224,29 @@ def maecho_v_update_factored_stacked_ref(W, V, U, s, frac: float, norm: bool = F
     of W and UT = Uᵀ."""
     return maecho_v_update_left_stacked_ref(compressed_residual_ref(W, V, U, s),
                                             U.transpose(-1, -2), W, V, frac, norm, eps)
+
+
+# --------------------------------------------------------------------------
+# the client-chunked Gram's pair block (B19) and the block-RLS downdate (B20)
+# --------------------------------------------------------------------------
+def maecho_gram_cross_ref(Ra, Rb):
+    """G = Ra @ Rbᵀ in fp32 for the flat residual rows of two client
+    chunks, Ra (ca, D) and Rb (cb, D): one partial product per slab of
+    1024 columns (the last one zero-padded, which adds zero), then
+    their sum, as the kernel sums per-slab partials.  (One product over
+    all of D runs each fp32 dot over up to millions of terms; see
+    :func:`_gram`.)"""
+    Ra, Rb = Ra.float(), Rb.float()
+    D, slab = Ra.shape[-1], 1024
+    if D <= slab:
+        return Ra @ Rb.T
+    pad = (-D) % slab
+    A = torch.nn.functional.pad(Ra, (0, pad)).reshape(Ra.shape[0], -1, slab)
+    B = torch.nn.functional.pad(Rb, (0, pad)).reshape(Rb.shape[0], -1, slab)
+    return (A.transpose(0, 1) @ B.permute(1, 2, 0)).sum(0)
+
+
+def rank_downdate_ref(Q, U, A):
+    """Q − U·A·Uᵀ for Q (d, d), U (d, b), A (b, b)."""
+    return Q - U @ A @ U.T
+

@@ -1,5 +1,6 @@
-"""The CUDA kernels B1/B4/B7, B2/B5/B8, B3/B6/B9 and the stacked B10/B13/B16,
-B11/B14/B17 and B12/B15/B18 against their plain versions on the card
+"""The CUDA kernels B1/B4/B7, B2/B5/B8, B3/B6/B9, the stacked B10/B13/B16,
+B11/B14/B17 and B12/B15/B18, the chunk-pair cross-Gram B19 and the
+block-RLS downdate B20 against their plain versions on the card
 (``PYTHONPATH=src python -m pytest --noconftest tests/test_torch_cuda.py``
 on a machine with an NVIDIA Hopper GPU and ``nvcc``; ``--noconftest``
 because ``tests/conftest.py`` imports jax, which such a machine need not
@@ -10,9 +11,10 @@ import pytest
 import torch
 
 from repro_torch.core.maecho import MAEchoConfig, maecho_aggregate
-from repro_torch.kernels import ref
+from repro_torch.core.projections import block_update
+from repro_torch.kernels import ops, ref
 from repro_torch.kernels.maecho_gram import (compressed_residual, maecho_gram,
-                                             maecho_gram_diag,
+                                             maecho_gram_cross, maecho_gram_diag,
                                              maecho_gram_diag_stacked,
                                              maecho_gram_left,
                                              maecho_gram_left_stacked,
@@ -30,6 +32,7 @@ from repro_torch.kernels.maecho_v_update import (maecho_v_update,
                                                  maecho_v_update_left,
                                                  maecho_v_update_left_stacked,
                                                  maecho_v_update_stacked)
+from repro_torch.kernels.rank_update import block_rls_update, rank_downdate
 
 pytestmark = pytest.mark.cuda
 
@@ -465,3 +468,78 @@ def test_gram_kernels_beyond_54_clients(card, N):
     projs = [{"W": P[i]} for i in range(N)]
     cfg = MAEchoConfig(tau=2, eta=0.5, mu=20.0)
     assert _aggregate_launches(clients, projs, cfg, OTHERS[:3]) == [2, 2, 2]
+
+
+# B19 at ragged client counts and a D no multiple of a k-step; Ra is Rb
+# for a diagonal block
+@pytest.mark.parametrize("shape", ((1, 7, 513), (37, 64, 60001), (65, 130, 4097),
+                                   (64, 64, 313600)))
+def test_gram_cross_matches_plain(card, shape):
+    """B19 against its plain version and a float64 product, bitwise
+    reproducible, and exactly symmetric on a diagonal block."""
+    ca, cb, D = shape
+    Ra = torch.randn(ca, D, device="cuda", generator=card)
+    Rb = torch.randn(cb, D, device="cuda", generator=card)
+    before = maecho_gram_cross.launches
+    for a, b in ((Ra, Rb), (Rb, Rb)):
+        G, Gr = maecho_gram_cross(a, b), ref.maecho_gram_cross_ref(a, b)
+        G64 = a.double() @ b.double().T
+        assert G.shape == (a.shape[0], b.shape[0])
+        assert (G - Gr).abs().max() <= 1e-5 * Gr.abs().max()
+        assert (G.double() - G64).abs().max() <= 1e-5 * G64.abs().max()
+        assert torch.equal(G, maecho_gram_cross(a, b))
+    assert torch.equal(G, G.T)
+    assert maecho_gram_cross.launches - before == 4
+
+
+def test_gram_cross_rejects_bad_operands(card):
+    Ra = torch.zeros(3, 8, device="cuda")
+    with pytest.raises(ValueError, match="shapes"):
+        maecho_gram_cross(Ra, torch.zeros(3, 9, device="cuda"))
+    with pytest.raises(ValueError, match="float32"):
+        maecho_gram_cross(Ra.double(), Ra.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        maecho_gram_cross(Ra, torch.zeros(8, 3, device="cuda").T)
+
+
+@pytest.mark.parametrize("d,b", ((512, 64), (784, 128), (896, 128), (100, 7), (70, 200)))
+def test_rank_downdate_matches_plain(card, d, b):
+    """B20 against Q − U A Uᵀ in fp32 and float64 (1e-3), ragged d and b
+    included, and the block-RLS step around it against
+    core.projections.block_update."""
+    Q0 = torch.randn(d, d, device="cuda", generator=card)
+    Q = Q0 @ Q0.T / d + torch.eye(d, device="cuda")
+    U = torch.randn(d, b, device="cuda", generator=card) / b ** 0.5
+    A0 = torch.randn(b, b, device="cuda", generator=card) / b ** 0.5
+    A = (0.5 * (A0 + A0.T)).contiguous()
+    before = rank_downdate.launches
+    got = rank_downdate(Q, U, A)
+    torch.testing.assert_close(got, ref.rank_downdate_ref(Q, U, A), atol=1e-3, rtol=1e-3)
+    want64 = Q.double() - U.double() @ A.double() @ U.double().T
+    torch.testing.assert_close(got.double(), want64, atol=1e-3, rtol=1e-3)
+    Xb = torch.randn(b, d, device="cuda", generator=card)
+    torch.testing.assert_close(block_rls_update(Q, Xb, 1.0),
+                               block_update(Q, Xb, 1.0), atol=1e-3, rtol=1e-3)
+    assert rank_downdate.launches - before == 2
+
+
+def test_chunked_kernel_aggregate_matches_oracle(card):
+    """A kernel aggregate at client_chunk 3 over N = 7 (chunks 3/3/1)
+    contracts its one kernel leaf's chunk pairs with B19, 6 a step, and
+    launches no other kernel; it agrees with the unchunked oracle."""
+    N, out_d, in_d, k = 7, 160, 200, 30
+    clients = [{"W": torch.randn(out_d, in_d, device="cuda", generator=card)}
+               for _ in range(N)]
+    projs = [{"W": {"U": torch.linalg.qr(torch.randn(in_d, k, device="cuda",
+                                                     generator=card))[0].contiguous(),
+                    "s": torch.rand(k, device="cuda", generator=card) + 0.1}}
+             for _ in range(N)]
+    cfg = MAEchoConfig(tau=2, eta=0.5, mu=20.0, client_chunk=3)
+    before = maecho_gram_cross.launches
+    assert _aggregate_launches(clients, projs, cfg, OTHERS + DIAG) == [0] * 9
+    assert maecho_gram_cross.launches - before == 2 * 6
+    want = maecho_aggregate(clients, projs, MAEchoConfig(tau=2, eta=0.5, mu=20.0),
+                            backend="oracle")
+    got = maecho_aggregate(clients, projs, cfg, backend="kernel")
+    torch.testing.assert_close(got["W"], want["W"], atol=1e-3, rtol=0)
+    assert ops.maecho_gram_cross is maecho_gram_cross

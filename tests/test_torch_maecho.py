@@ -3,7 +3,7 @@
 reference's aggregate tolerance) on the reference's own case builder —
 every projector kind, both conventions, ragged client masks, batched
 and sequential QP — plus route-for-route equality of the compiled plan
-and the not-yet-ported options raising with their ROADMAP item."""
+and the not-yet-ported backends raising with their ROADMAP item."""
 import dataclasses
 
 import jax
@@ -126,26 +126,12 @@ def test_paper_mlp_routes():
                                                      "oi", "kernel")
 
 
-@pytest.mark.parametrize("what", ("sharded", "sharded2d", "stacked", "chunk"))
+@pytest.mark.parametrize("what", ("sharded", "sharded2d"))
 def test_unported_options_raise(what):
     clients, projs, _ = _case(1, 2, "full", "oi", (48, 64), False)
-    kw, cfg = {"device": "cpu"}, TCFG
-    if what.startswith("sharded"):
-        kw["backend"] = what
-    elif what == "stacked":
-        # stacked factored leaves are ported (B11/B14/B17); their
-        # client-chunked route (the reference's
-        # maecho_streaming_gram_chunked_stacked, ROADMAP A8) is not
-        r = np.random.RandomState(0)
-        clients = [{"W": r.randn(2, 128, 128).astype(np.float32)} for _ in range(2)]
-        projs = [{"W": {"U": r.randn(2, 128, 4).astype(np.float32),
-                        "s": r.rand(2, 4).astype(np.float32)}} for _ in range(2)]
-        kw.update(stack_levels={"W": 1}, backend="kernel")
-        cfg = dataclasses.replace(TCFG, client_chunk=2)
-    else:
-        cfg = dataclasses.replace(TCFG, client_chunk=2)
     with pytest.raises(NotImplementedError, match="ROADMAP item A"):
-        tm.maecho_aggregate(to_port(clients), to_port(projs), cfg, **kw)
+        tm.maecho_aggregate(to_port(clients), to_port(projs), TCFG, device="cpu",
+                            backend=what)
 
 
 @pytest.mark.parametrize("bad", ("backend", "mask_shape", "mask_empty"))
