@@ -143,6 +143,29 @@ Added with client chunking (``MAEchoConfig.client_chunk``), B19 and B20
    within 1e-3 of the unchunked kernel aggregate at τ = 2; peak memory
    beside phase 10's.
 
+Added with serving (after phase 15, once the LLM silos are freed; phase
+7's fine-tune, on ``attn_backend="oracle"``, must launch no kernel):
+
+16. Serving phase 7's dense kernel aggregate at Qwen2-0.5B's full width
+   (``repro_torch.launch.serve``).  B21 (flash attention) against its
+   plain version at (B = 8, S = 512, 14/2 heads of 64), causal, in bf16
+   and fp32 and at a ragged S = 200; B22 (decode attention) at (B = 8,
+   W = 640, 2 kv heads, group 7, D = 64) filled to 576, wrapped with an
+   empty row (zeros), and on a ``w_live`` view of a 1024-slot cache;
+   both bitwise reproducible, timed in bf16 from CUDA-graph replays
+   beside their plain versions and ``scaled_dot_product_attention``
+   (timed only).  Then ``run_fixed`` on 8 requests x prompt 512 x gen 64
+   with ``attn_backend="auto"`` (bf16; window ``round_window(576)`` =
+   640): B21 24 launches, B22 24 x 63, no other kernel; prefill time,
+   decode tokens/s and peak memory printed.  At fp32 compute the kernel
+   and oracle backends emit identical tokens, prefill logits within
+   1e-3.  Continuous batching at the reference ``serve.py`` defaults
+   (8 requests, 4 slots, arrival every 3 steps, prompt 64, gen 32,
+   ``"kernel"``, fp32): B21 24 x 8, B22 24 per decode step, tokens per
+   request identical to ``run_fixed``'s (on a mismatch: the first one's
+   request, step and top-2 logit gap, and that step's logits within
+   1e-3).
+
 It prints each phase's time, the QP's and the kernels' time inside a
 kernel aggregate of each path (CUDA events around each call), a
 ``{"kernels": [...]}`` JSON line, the card's name and power limit, and
@@ -162,7 +185,12 @@ ROOT = pathlib.Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 FP32_FLOPS = 67e12      # H100 SXM fp32 peak outside the tensor cores
+BF16_FLOPS = 989e12     # H100 SXM dense bf16 tensor-core peak
 HBM_BYTES = 3.35e12     # H100 SXM HBM3 bandwidth
+# fastest exact rate of bf16 attention (B21, B22): q.k^T, half the flops, is
+# bf16 x bf16, exact on the tensor cores with fp32 accumulation; p.v takes p in
+# fp32, exact as three bf16 terms, so at a third of that rate: 2 flops / BF16
+ATTN_BF16_FLOPS = BF16_FLOPS / 2
 TAU = 30               # the accuracy aggregates
 TAU_CHECK = 5          # kernel-vs-oracle comparisons and the scalar path
 RANK = 78               # table6_svd.py's "factored0.1": int(0.1 * 784)
@@ -181,13 +209,20 @@ STACKED_LEFT = ("maecho_gram_left_stacked", "maecho_update_left_stacked",
                 "maecho_v_update_factored_stacked")                        # B11 B14 B17
 CROSS = ("maecho_gram_cross",)    # B19
 DOWNDATE = ("rank_downdate",)     # B20
-KERNELS = DENSE + FACTORED + DIAG + STACKED + STACKED_DIAG + STACKED_LEFT + CROSS + DOWNDATE
+ATTN = ("flash_attention", "decode_attention")   # B21 B22 (serving)
+KERNELS = (DENSE + FACTORED + DIAG + STACKED + STACKED_DIAG + STACKED_LEFT + CROSS + DOWNDATE
+           + ATTN)
 GRAMS = ("maecho_gram", "maecho_gram_left", "maecho_gram_diag", "maecho_gram_stacked",
          "maecho_gram_left_stacked", "maecho_gram_diag_stacked")   # B1 B2 B3 B10 B11 B12
 MANY_CLIENTS = (55, 64, 128)   # past the 54 clients one Gram CTA parks
 CHUNK = 64              # bench_largeN_agg.py's chunk, and the full-width path's
 LLM_TAU = 15            # the example's MAEchoConfig(tau=15, eta=0.5, mu=20)
 LLM_RANK = 89           # table6_svd.py's "factored0.1" at d_model: int(0.1 * 896)
+# serving (phase 16): the fixed batch, and the reference serve.py's
+# continuous-batching defaults
+SERVE_B, SERVE_PROMPT, SERVE_GEN = 8, 512, 64
+ARRIVAL = dict(requests=8, slots=4, arrival_every=3, prompt=64, gen=32)
+LOGIT_ATOL = 1e-3       # kernel vs oracle prefill logits at fp32 compute
 # B1/B2 (k = 78)/B3 at W0, N = 4, in run Q (PERF.md §6; H100 80GB HBM3, 700 W)
 RUN_Q_MS = {"maecho_gram": 0.3078, "maecho_gram_left": 0.0426, "maecho_gram_diag": 0.0225}
 REPLACES = {"maecho_gram": "src/repro/kernels/maecho_gram.py:131",
@@ -209,7 +244,9 @@ REPLACES = {"maecho_gram": "src/repro/kernels/maecho_gram.py:131",
             "maecho_update_left_stacked": "src/repro/kernels/maecho_update.py:217",
             "maecho_v_update_factored_stacked": "src/repro/kernels/maecho_v_update.py:233",
             "maecho_gram_cross": "src/repro/kernels/maecho_gram.py:242",
-            "rank_downdate": "src/repro/kernels/rank_update.py:48"}
+            "rank_downdate": "src/repro/kernels/rank_update.py:48",
+            "flash_attention": "src/repro/kernels/flash_attention.py:103",
+            "decode_attention": "src/repro/kernels/decode_attention.py:189"}
 
 
 def fail(msg: str) -> None:
@@ -248,20 +285,22 @@ def graph_ms(torch, fn, reps: int) -> float:
 
 
 def time_cases(torch, label: str, cases: dict, timings: dict, reps: int = 50) -> None:
-    """Time each ``name: (kernel fn, plain fn, flops, bytes)`` of one
-    leaf and record ``timings[(name, label)] = (ms, plain ms, bound ms,
-    bound by)``, device times from CUDA graphs of ``reps`` calls."""
-    for name, (k_fn, p_fn, flops, nbytes) in cases.items():
+    """Time each ``name: (kernel fn, plain fn, flops, bytes[, rate])`` of
+    one leaf and record ``timings[(name, label)] = (ms, plain ms, bound
+    ms, bound by)``, device times from CUDA graphs of ``reps`` calls.
+    ``rate`` is the fastest exact operation rate for the case's types
+    (``FP32_FLOPS`` unless given)."""
+    for name, (k_fn, p_fn, flops, nbytes, *rate) in cases.items():
         ms, plain = graph_ms(torch, k_fn, reps), graph_ms(torch, p_fn, reps)
-        b, by = bound_ms(flops, nbytes)
+        b, by = bound_ms(flops, nbytes, *rate)
         timings[(name, label)] = (ms, plain, b, by)
         print(f"[kernels] {label} {name}: {ms:.4f} ms, plain {plain:.4f} ms "
               f"({reps} calls per graph), bound {b:.4f} ms ({by}: "
               f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB)")
 
 
-def bound_ms(flops: float, nbytes: float) -> tuple:
-    t_ops, t_bytes = flops / FP32_FLOPS * 1e3, nbytes / HBM_BYTES * 1e3
+def bound_ms(flops: float, nbytes: float, rate: float = FP32_FLOPS) -> tuple:
+    t_ops, t_bytes = flops / rate * 1e3, nbytes / HBM_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -1161,6 +1200,250 @@ def phase_llm_chunked(torch, kern, lm, lf):
     return r
 
 
+def attention_cases(torch, gen):
+    """Phase 16's kernel inputs: B21 at Qwen2-0.5B's prefill (B = 8,
+    S = 512, 14/2 heads of 64) in bf16 and fp32 and at a ragged S = 200;
+    B22 at its serving decode (B = 8, W = 640, 2 kv heads, group 7, D 64)
+    filled to 576, wrapped (fill 700) with row 0 empty, and through a
+    ``w_live`` view of a 1024-slot cache."""
+    def qkv(B, S, dtype):
+        return [torch.randn(B, S, h, 64, device="cuda", generator=gen).to(dtype)
+                for h in (14, 2, 2)]
+
+    def decode(fill, W=640, dtype=torch.bfloat16):
+        q = torch.randn(8, 1, 14, 64, device="cuda", generator=gen).to(dtype)
+        kc, vc = (torch.randn(8, W, 2, 64, device="cuda", generator=gen).to(dtype)
+                  for _ in range(2))
+        idx = torch.arange(W, device="cuda")
+        last = (fill - 1) - torch.remainder(fill - 1 - idx, W)
+        return q, kc, vc, ((last >= 0) & (last > fill - 1 - W)).expand(8, W)
+
+    flash = {"main bf16": qkv(8, 512, torch.bfloat16), "main f32": qkv(8, 512, torch.float32),
+             "ragged S=200 bf16": qkv(8, 200, torch.bfloat16)}
+    wrapped = decode(700)
+    wrapped = wrapped[:3] + (wrapped[3].clone(),)
+    wrapped[3][0] = False
+    q, kc, vc, mask = decode(576, W=1024)      # ops.live_window(576, 1024) = 640
+    dec = {"main bf16 fill 576": decode(576), "main f32 fill 576": decode(576, dtype=torch.float32),
+           "wrapped fill 700, row 0 empty": wrapped,
+           "w_live view of W=1024": (q, kc[:, :640], vc[:, :640], mask[:, :640])}
+    return flash, dec
+
+
+def phase_serve_kernels(torch, kern, ref):
+    """B21 and B22 against their plain versions at the serving path's
+    shapes, timed from CUDA-graph replays beside their plain versions and
+    ``scaled_dot_product_attention`` (timed only; the port never calls
+    it).  Returns (errors, timings, {(name, label): SDPA ms})."""
+    F = torch.nn.functional
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    flash, dec = attention_cases(torch, gen)
+    err, timings, library = {}, {}, {}
+    for tag, (q, k, v) in flash.items():
+        e = (kern.flash_attention(q, k, v).float()
+             - ref.flash_attention_ref(q, k, v).float()).abs().max().item()
+        tol = 2e-5 if q.dtype == torch.float32 else 1e-2
+        print(f"[kernels] serve {tag} (B={q.shape[0]}, S={q.shape[1]}, 14/2 heads of 64, "
+              f"causal) flash_attention max_abs_err {e:.3e} tol {tol:.0e}")
+        check(e <= tol, f"flash_attention disagrees with its plain version at {tag}")
+        if tag == "main bf16":
+            err["flash_attention"] = e
+    for tag, (q, kc, vc, mask) in dec.items():
+        got = kern.decode_attention(q, kc, vc, mask)
+        e = (got.float() - ref.decode_attention_ref(q, kc, vc, mask).float()).abs().max().item()
+        tol = 2e-5 if q.dtype == torch.float32 else 1e-2
+        empty = not bool(mask[0].any())
+        print(f"[kernels] serve {tag} (B=8, W={kc.shape[1]}, 2 kv heads, group 7, D=64, "
+              f"batch stride {kc.stride(0)}) decode_attention max_abs_err {e:.3e} tol {tol:.0e}"
+              + (f"; empty row 0 all zero: {bool((got[0] == 0).all())}" if empty else ""))
+        check(e <= tol and (not empty or bool((got[0] == 0).all())),
+              f"decode_attention disagrees with its plain version at {tag}")
+        check(torch.equal(got, kern.decode_attention(q, kc, vc, mask)),
+              f"decode_attention is not reproducible at {tag}")
+        if tag == "main bf16 fill 576":
+            err["decode_attention"] = e
+
+    # timing at the main path's shapes and dtype (bf16); least work and bytes:
+    # B21 the unmasked causal half of q.k^T and p.v; B22 the valid slots only;
+    # the bound at ATTN_BF16_FLOPS, the fp32 SIMT figure printed beside it
+    q, k, v = flash["main bf16"]
+    B, S, Hq, D = q.shape
+    Hkv = k.shape[2]
+    flops = 2.0 * B * Hq * D * S * (S + 1)
+    nbytes = 2.0 * (2 * B * S * Hq * D + 2 * B * S * Hkv * D)
+    time_cases(torch, "serve", {"flash_attention": (
+        lambda: kern.flash_attention(q, k, v), lambda: ref.flash_attention_ref(q, k, v),
+        flops, nbytes, ATTN_BF16_FLOPS)}, timings, 20)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    library[("flash_attention", "serve")] = graph_ms(torch, lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), 20)
+    print(f"[kernels] serve flash_attention: all flops at the fp32 SIMT rate "
+          f"{flops / FP32_FLOPS * 1e3:.4f} ms; library scaled_dot_product_attention(is_causal, "
+          f"enable_gqa) {library[('flash_attention', 'serve')]:.4f} ms")
+
+    q, kc, vc, mask = dec["main bf16 fill 576"]
+    n_valid = int(mask.sum())
+    W = kc.shape[1]
+    flops = 4.0 * Hq * D * n_valid
+    nbytes = 2.0 * (2 * B * Hq * D + 2 * n_valid * Hkv * D) + B * W
+    time_cases(torch, "serve", {"decode_attention": (
+        lambda: kern.decode_attention(q, kc, vc, mask),
+        lambda: ref.decode_attention_ref(q, kc, vc, mask), flops, nbytes, ATTN_BF16_FLOPS)},
+        timings, 50)
+    qt, kt, vt = q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2)
+    am = mask[:, None, None, :]
+    library[("decode_attention", "serve")] = graph_ms(torch, lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=am, enable_gqa=True), 50)
+    print(f"[kernels] serve decode_attention ({n_valid} valid slots of {B}x{W}): all flops "
+          f"at the fp32 SIMT rate {flops / FP32_FLOPS * 1e3:.6f} ms; library "
+          f"scaled_dot_product_attention(bool attn_mask, enable_gqa) "
+          f"{library[('decode_attention', 'serve')]:.4f} ms")
+    return err, timings, library
+
+
+def profile_decode(torch, cfg, params, prompts, steps: int = 8) -> dict:
+    """``torch.profiler`` over ``steps`` decode steps of the fixed batch
+    (after its prefill): the device's busy share of the window (kernel
+    time summed over the one stream, over the window's host wall time)
+    and the kernels with the most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.serve import live_bucket, pad_kv_to_window, round_window
+    from repro_torch.models.zoo import get_model
+
+    model = get_model(cfg)
+    P = prompts.shape[1]
+    window = round_window(P + SERVE_GEN)
+    with torch.no_grad():
+        logits, cache = model.prefill(params, {"tokens": prompts})
+        cache = pad_kv_to_window(cache, window)
+        step = model.make_serve_step()
+        token = logits[:, -1].argmax(-1)[:, None].to(torch.int32)
+        token, cache = step(params, cache, token, P, w_live=live_bucket(P + 1, window))
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for t in range(1, steps + 1):
+                token, cache = step(params, cache, token, P + t, w_live=live_bucket(P + t + 1, window))
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return {"steps": steps, "wall_ms": wall_us / 1e3, "busy_ms": busy_us / 1e3,
+            "n_kernels": len(kernels), "top": [(n[:60], us / 1e3) for n, us in top]}
+
+
+def phase_serve(torch, kern, lm):
+    """Serve phase 7's dense kernel aggregate at full width: the fixed
+    batch on ``attn_backend="auto"`` (bf16), kernel against oracle at fp32
+    compute, and continuous batching against the fixed batch."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import first_mismatch, per_request, run_arrival, run_fixed
+    from repro_torch.models.zoo import get_model
+
+    cfg = get_config("qwen2-0.5b")
+    params = lm["agg"]
+    rng = np.random.RandomState(0)
+    prompts = torch.as_tensor(rng.randint(0, cfg.vocab, (SERVE_B, SERVE_PROMPT)).astype(np.int32),
+                              device="cuda")
+    r = {"cfg": cfg}
+    r["before_gb"], r["before_gc_gb"] = allocated_gb(torch)
+    (tokens, stats), r["launches"] = count_launches(
+        torch, kern, lambda: run_fixed(cfg, get_model(cfg), params, prompts, SERVE_GEN))
+    r["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    r["fixed"] = stats
+    r["tokens_ok"] = (tuple(tokens.shape) == (SERVE_B, SERVE_GEN)
+                      and bool(((tokens >= 0) & (tokens < cfg.vocab)).all()))
+    r["fixed_warm"] = run_fixed(cfg, get_model(cfg), params, prompts, SERVE_GEN)[1]
+    r["profile"] = profile_decode(torch, cfg, params, prompts)
+
+    cfg32 = cfg.replace(compute_dtype="float32")
+    runs = {}
+    for backend in ("kernel", "oracle"):
+        c = cfg32.replace(attn_backend=backend)
+        t0 = time.perf_counter()
+        toks, st = run_fixed(c, get_model(c), params, prompts, SERVE_GEN, keep_logits=True)
+        runs[backend] = (toks, st, time.perf_counter() - t0)
+    (tk, sk, r["t_kernel32"]), (to, so, r["t_oracle32"]) = runs["kernel"], runs["oracle"]
+    r["logit_diff"] = (sk["logits"][0].float() - so["logits"][0].float()).abs().max().item()
+    r["kernel_vs_oracle"] = first_mismatch(tk.tolist(), to.tolist(), per_request(sk["logits"]),
+                                           per_request(so["logits"]))
+    del runs, sk, so
+
+    a = ARRIVAL
+    ca = cfg32.replace(attn_backend="kernel")
+    p2 = torch.as_tensor(np.random.RandomState(1).randint(0, cfg.vocab, (a["requests"], a["prompt"]))
+                         .astype(np.int32), device="cuda")
+    t0 = time.perf_counter()
+    (outs, sa), r["launches_arrival"] = count_launches(torch, kern, lambda: run_arrival(
+        ca, get_model(ca), params, p2, a["gen"], slots=a["slots"],
+        arrival_every=a["arrival_every"], keep_logits=True))
+    r["t_arrival"], r["arrival"] = time.perf_counter() - t0, sa
+    fixed, sf = run_fixed(ca, get_model(ca), params, p2, a["gen"], keep_logits=True)
+    r["arrival_match"] = first_mismatch(fixed.tolist(), outs, per_request(sf["logits"]),
+                                        sa["logits"])
+    return r
+
+
+def check_serve(r: dict) -> None:
+    """Phase 16's contract: launch counts, tokens, kernel vs oracle and
+    continuous vs fixed batching."""
+    nL, a = r["cfg"].n_layers, ARRIVAL
+    f, w = r["fixed"], r["fixed_warm"]
+    for tag, st in (("first", f), ("second", w)):
+        print(f"[serve] fixed batch ({tag} run), {SERVE_B} requests x prompt {SERVE_PROMPT} x "
+              f"gen {SERVE_GEN}, {r['cfg'].compute_dtype}, attn_backend={r['cfg'].attn_backend}, "
+              f"window {st['window']}: prefill "
+              f"{st['t_prefill'] * 1e3:.3f} ms, decode {st['t_decode']:.3f} s "
+              f"({st['tok_s']:.1f} tok/s, {st['t_decode'] / (SERVE_GEN - 1) * 1e3:.3f} ms a step)")
+    pr = r["profile"]
+    print(f"[profile] serve decode, {pr['steps']} steps under torch.profiler: wall "
+          f"{pr['wall_ms']:.3f} ms, device busy {pr['busy_ms']:.3f} ms "
+          f"({100 * pr['busy_ms'] / pr['wall_ms']:.2f} %, {pr['n_kernels']} kernel launches, "
+          f"{pr['n_kernels'] / pr['steps']:.0f} a step); most device time: "
+          + "; ".join(f"{n} {ms:.3f} ms" for n, ms in pr["top"]))
+    print(f"[memory] serve: allocated before {r['before_gb']:.3f} GB, {r['before_gc_gb']:.3f} GB "
+          f"after gc.collect(), peak in the fixed batch {r['peak_gb']:.3f} GB")
+    print(f"[launches] serve fixed batch: {r['launches']}")
+    want = {"flash_attention": nL, "decode_attention": nL * (SERVE_GEN - 1)}
+    for name in KERNELS:
+        check(r["launches"][name] == want.get(name, 0), f"{name} ran {r['launches'][name]} "
+              f"times in the fixed batch, expected {want.get(name, 0)}")
+    check(r["tokens_ok"], "the fixed batch's tokens have the wrong shape or range")
+    print(f"[check] serve fp32 compute, kernel vs oracle ({r['t_kernel32']:.3f} / "
+          f"{r['t_oracle32']:.3f} s): prefill logits max |d| {r['logit_diff']:.3e} tol "
+          f"{LOGIT_ATOL:.0e}; first token mismatch {r['kernel_vs_oracle']}")
+    check(r["logit_diff"] <= LOGIT_ATOL, "kernel and oracle prefill logits disagree")
+    check(r["kernel_vs_oracle"] is None, "kernel and oracle emit different tokens")
+    sa = r["arrival"]
+    print(f"[serve] continuous batching ({a['requests']} requests, {a['slots']} slots, "
+          f"arrival_every {a['arrival_every']}, prompt {a['prompt']}, gen {a['gen']}, fp32, "
+          f"kernel): {sa['decode_steps']} decode steps, {r['t_arrival']:.3f} s, "
+          f"{sa['tok_s']:.1f} tok/s, window {sa['window']}")
+    print(f"[launches] serve continuous batching: {r['launches_arrival']}")
+    want = {"flash_attention": nL * a["requests"], "decode_attention": nL * sa["decode_steps"]}
+    for name in KERNELS:
+        check(r["launches_arrival"][name] == want.get(name, 0), f"{name} ran "
+              f"{r['launches_arrival'][name]} times in continuous batching, expected "
+              f"{want.get(name, 0)}")
+    m = r["arrival_match"]
+    if m is None:
+        print("[check] serve continuous vs fixed batch: every request's tokens identical")
+    else:
+        req, step, gap, diff = m
+        print(f"[check] serve continuous vs fixed batch: first token mismatch at request {req}, "
+              f"step {step}: top-2 logit gap {gap:.3e}, that step's logits max |d| {diff:.3e} "
+              f"tol {LOGIT_ATOL:.0e}")
+        check(diff <= LOGIT_ATOL, "continuous and fixed batching disagree beyond a near tie")
+
+
 def allocated_gb(torch) -> tuple:
     """Device memory allocated now, and after ``gc.collect()`` frees what
     only reference cycles still hold (GB); then resets the peak."""
@@ -1218,6 +1501,8 @@ def phase_llm_path(torch, kern):
           f"{cfg.microbatches}, remat {cfg.remat}, attn_backend {cfg.attn_backend}")
     r = {"t_train": 0.0}
     silos, projs, t_proj = [], [], 0.0
+    for k in kern.all:          # the fine-tune (attn_backend="oracle") launches no kernel
+        k.launches = 0
     for i, dom in enumerate((101, 202)):
         opt = adamw(1e-3)
         params, state = base, opt.init(base)
@@ -1242,6 +1527,7 @@ def phase_llm_path(torch, kern):
         t_proj += time.perf_counter() - t1
         silos.append(params)
     r["t_proj"], r["t_setup"] = t_proj, time.perf_counter() - t0
+    r["launches_finetune"] = {k.__name__: k.launches for k in kern.all}
     shapes = {p: tuple(x.shape) for p, x in trees.tree_paths(projs[0])}
     print(f"[llm] projector shapes {shapes}")
     check(shapes["layers.wq"] == (24, 896, 896) and shapes["layers.w_gate"] == (24, 896, 896)
@@ -1267,7 +1553,7 @@ def phase_llm_path(torch, kern):
     r["ppl"] = {name: llm_ppl(torch, model, cfg, p) for name, p in (
         ("silo0", silos[0]), ("silo1", silos[1]), ("fedavg", fedavg(silos)), ("maecho", agg))}
     r["t_ppl"] = time.perf_counter() - t1
-    r.update(cfg=cfg, model=model, silos=silos, projs=projs)
+    r.update(cfg=cfg, model=model, silos=silos, projs=projs, agg=agg)
     return r
 
 
@@ -1279,6 +1565,11 @@ def check_llm_path(r: dict, five=STACKED, path: str = "llm") -> None:
     kernel."""
     launches = r["launches"]
     print(f"[launches] {path} path: {launches}")
+    if "launches_finetune" in r:
+        print(f"[launches] {path} fine-tune (2 silos x 60 AdamW steps, probes): "
+              f"{r['launches_finetune']}")
+        check(not any(r["launches_finetune"].values()),
+              f"a kernel ran during the {path} fine-tune")
     want = {**{n: 5 * LLM_TAU for n in five}, **{n: 2 * LLM_TAU for n in STACKED_DIAG},
             **{n: LLM_TAU for n in DIAG}}
     for name in KERNELS:
@@ -1542,7 +1833,8 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch.kernels import build, ref
-    from repro_torch.kernels import maecho_gram, maecho_update, maecho_v_update, rank_update
+    from repro_torch.kernels import (decode_attention, flash_attention, maecho_gram,
+                                     maecho_update, maecho_v_update, rank_update)
 
     kern = SimpleNamespace(
         compressed_residual=maecho_gram.compressed_residual,
@@ -1567,7 +1859,9 @@ def main() -> None:
         maecho_v_update_factored_stacked=maecho_v_update.maecho_v_update_factored_stacked,
         maecho_v_update_left_stacked=maecho_v_update.maecho_v_update_left_stacked,
         maecho_gram_cross=maecho_gram.maecho_gram_cross,
-        rank_downdate=rank_update.rank_downdate)
+        rank_downdate=rank_update.rank_downdate,
+        flash_attention=flash_attention.flash_attention,
+        decode_attention=decode_attention.decode_attention)
     kern.all = [getattr(kern, n) for n in KERNELS]
 
     smi = subprocess.run(
@@ -1762,6 +2056,19 @@ def main() -> None:
     del lm["silos"], lm["projs"], lf["projs"]
 
     t0 = time.perf_counter()
+    e, t, serve_library = phase_serve_kernels(torch, kern, ref)
+    err.update(e)
+    timings.update(t)
+    library.update(serve_library)
+    t1 = time.perf_counter()
+    sv = phase_serve(torch, kern, lm)
+    print(f"[phase] serve {time.perf_counter() - t0:.3f} s: kernels vs plain and timed "
+          f"{t1 - t0:.3f} s, fixed batch x2, fp32 kernel and oracle, continuous batching "
+          f"{time.perf_counter() - t1:.3f} s")
+    check_serve(sv)
+    del lm["agg"]
+
+    t0 = time.perf_counter()
     bench = phase_bench_stacked_agg(torch, kern)
     print(f"[phase] bench_stacked_agg case {time.perf_counter() - t0:.3f} s")
     for L, (launches, diff, wall) in bench.items():
@@ -1777,9 +2084,11 @@ def main() -> None:
 
     source = {**{n: r for n in DENSE}, **{n: f for n in FACTORED}, **{n: sc for n in DIAG},
               **{n: lm for n in STACKED + STACKED_DIAG}, **{n: lf for n in STACKED_LEFT},
-              **{n: ck for n in CROSS}, **{n: chained for n in DOWNDATE}}
+              **{n: ck for n in CROSS}, **{n: chained for n in DOWNDATE},
+              **{n: sv for n in ATTN}}
     label = {**{n: f"W0k{RANK}" for n in FACTORED}, **{n: "w_gate" for n in STACKED},
-             **{n: "w_down" for n in STACKED_DIAG}, **{n: "w_gate" for n in STACKED_LEFT}}
+             **{n: "w_down" for n in STACKED_DIAG}, **{n: "w_gate" for n in STACKED_LEFT},
+             **{n: "serve" for n in ATTN}}
     rows = []
     for name in KERNELS:
         ms, plain, b, by = timings[(name, label.get(name, "W0"))]
@@ -1789,7 +2098,8 @@ def main() -> None:
                      "launches": source[name]["launches"][name],
                      "max_abs_err": err[name], "ms": ms, "plain_ms": plain,
                      "bound_ms": b, "bound_by": by,
-                     "library_ms": library.get((name, "W0")) if name in CROSS else None})
+                     "library_ms": (library.get((name, label.get(name, "W0")))
+                                    if name in CROSS + ATTN else None)})
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

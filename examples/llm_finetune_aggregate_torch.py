@@ -12,9 +12,9 @@ FedAvg and MA-Echo is printed on both domains.
   PYTHONPATH=src python examples/llm_finetune_aggregate_torch.py --full   # on the GPU
 
 The default is the reduced smoke config; ``--full`` runs the published
-config (24 layers, d_model 896, vocab 151 936) with
-``attn_backend="oracle"`` (the flash-attention kernel is not ported),
-where the stacked transformer leaves aggregate through the hand-written
+config (24 layers, d_model 896, vocab 151 936).  Both run
+``attn_backend="oracle"`` (the flash-attention kernel B21 has no
+backward).  At full width the stacked transformer leaves aggregate through the hand-written
 CUDA kernels B10/B13/B16 and B12/B15/B18 and the embedding through
 B3/B6/B9.
 """
@@ -62,8 +62,9 @@ def main():
                     help="the published qwen2-0.5b config instead of the smoke one")
     args = ap.parse_args()
     dev = resolve_device(args.device)
-    cfg = (get_config("qwen2-0.5b").replace(attn_backend="oracle") if args.full
-           else get_smoke_config("qwen2-0.5b"))
+    # the fine-tune runs the plain attention: B21 has no backward
+    cfg = (get_config if args.full else get_smoke_config)("qwen2-0.5b").replace(
+        attn_backend="oracle")
     model = get_model(cfg)
     base = model.init_params(0, device=dev)
 

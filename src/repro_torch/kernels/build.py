@@ -36,7 +36,7 @@ SOURCES = ("maecho_gram", "maecho_update", "maecho_v_update",
            "maecho_gram_diag_stacked", "maecho_update_diag_stacked",
            "maecho_v_update_diag_stacked", "maecho_gram_left_stacked",
            "maecho_update_left_stacked", "maecho_v_update_factored_stacked",
-           "maecho_gram_cross", "rank_downdate")
+           "maecho_gram_cross", "rank_downdate", "flash_attention", "decode_attention")
 
 _libs: dict[str, ctypes.CDLL] = {}
 
@@ -151,6 +151,27 @@ def check_f32_cuda(name: str, **tensors) -> None:
         require(t.dtype == torch.float32,
                 f"{name}: {k} must be float32, got {t.dtype}")
         require(t.is_contiguous(), f"{name}: {k} must be contiguous")
+
+
+ATTENTION_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def check_attention_cuda(name: str, **tensors) -> int:
+    """Every tensor given lies on one CUDA device, all are float32 or all
+    bfloat16 (the attention kernels compute in fp32 either way), and each
+    has a contiguous last axis (the head dim; the kernels take the other
+    strides).  Returns the kernels' dtype code: 0 float32, 1 bfloat16."""
+    devs = {t.device for t in tensors.values()}
+    require(len(devs) == 1, f"{name}: tensors on several devices {devs}")
+    dtypes = {t.dtype for t in tensors.values()}
+    for k, t in tensors.items():
+        require(t.is_cuda, f"{name}: {k} is not a CUDA tensor")
+        require(t.dtype in ATTENTION_DTYPES,
+                f"{name}: {k} must be float32 or bfloat16, got {t.dtype}")
+        require(t.stride(-1) == 1 or t.shape[-1] == 1,
+                f"{name}: {k} must have a contiguous last axis, got strides {t.stride()}")
+    require(len(dtypes) == 1, f"{name}: mixed dtypes {sorted(map(str, dtypes))}")
+    return ATTENTION_DTYPES[dtypes.pop()]
 
 
 def stacked_dims(name: str, W, V, P, kind: str, alpha=None) -> tuple:

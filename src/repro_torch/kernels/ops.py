@@ -40,6 +40,15 @@ kernel-route leaves contract each chunk pair with B19
 product.  The last chunk is cut short instead of padded (B19 takes two
 chunk sizes).  :func:`rank_downdate` (B20) and :func:`block_rls_update`
 are the block-RLS entry points.
+
+The serving path's attention front ends come last:
+:func:`flash_attention_auto` (B21, prefill) and
+:func:`decode_attention_auto` (B22, one token over the ring-buffer
+cache), with the reference's eligibility rules.  Both kernels mask
+ragged edges themselves, so nothing is padded (the reference's route
+pads to a block multiple and crops, which gives the same result); a
+shape the reference's kernel cannot express runs the plain path on a
+CPU tensor and raises ``ValueError`` on a CUDA one.
 """
 from __future__ import annotations
 
@@ -49,6 +58,8 @@ import torch
 
 from repro_torch.core.plan import proj_kind
 from repro_torch.kernels import ref
+from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.maecho_gram import (compressed_residual, maecho_gram,
                                              maecho_gram_cross, maecho_gram_diag,
                                              maecho_gram_diag_stacked,
@@ -294,3 +305,83 @@ def maecho_streaming_gram_chunked_stacked(W, V, P, *, chunk: int):
 # the stacked update half is the same sweep: ``alpha`` is then the (L, N)
 # stack of per-layer solves
 maecho_streaming_apply_chunked_stacked = maecho_streaming_apply_chunked
+
+
+# --------------------------------------------------------------------------
+# serving attention: B21 (prefill) and B22 (decode)
+# --------------------------------------------------------------------------
+def _inexpressible(t, msg: str, plain):
+    """A shape the reference's kernel cannot express: the reference
+    warns once and runs its oracle; the port does so on a CPU tensor and
+    raises on a CUDA one (no plain path in the kernel's place)."""
+    if t.device.type == "cuda":
+        raise ValueError(f"{msg} (on {t.device}; the port runs no plain path in its place)")
+    fallback_warn(f"{msg}: running the plain path")
+    return plain()
+
+
+def flash_attention_auto(q, k, v, *, causal: bool = True):
+    """Front end of the flash kernel B21 (the reference's pad-to-block
+    front end, with no padding: the kernel masks ragged q and kv rows, so
+    the reference's ``bq`` / ``bk`` and its non-causal block-multiple
+    rule have no counterpart).  Non-causal attention and causal
+    self-attention (Sq == Sk) run the kernel at any length; causal with
+    Sq != Sk runs the plain chunked attention on a CPU tensor (the
+    reference's oracle) and raises on a CUDA one.  Which shapes take the
+    kernel at all is decided by the caller, ``layers.prefill_attention``."""
+    Sq, Sk = q.shape[1], k.shape[1]
+    if not causal or Sq == Sk:
+        return flash_attention(q, k, v, causal=causal)
+
+    def plain():
+        from repro_torch.models.layers import chunked_attention
+
+        return chunked_attention(q, k, v, causal=causal, q_chunk=min(128, Sq),
+                                 k_chunk=min(128, Sk))
+
+    return _inexpressible(q, f"flash attention (Sq={Sq}, Sk={Sk}, causal={causal}) is not "
+                             f"expressible by the flash kernel B21", plain)
+
+
+def decode_window_block(W: int) -> int | None:
+    """Largest supported window block dividing W (None: ineligible), the
+    reference's rule.  B22 itself works in 128-slot blocks whatever W
+    is; this decides eligibility."""
+    for bw in (512, 256, DEFAULT_BLOCK):
+        if W % bw == 0:
+            return bw
+    return None
+
+
+def live_window(w_live: int, W: int) -> int:
+    """Round a live-slot upper bound up to a block multiple, capped at W:
+    the serving loop's crop of the cache read (every valid slot of a
+    ring buffer whose highest written slot is below ``w_live`` lies in
+    ``[0, w_live)``)."""
+    return min(W, -(-int(w_live) // DEFAULT_BLOCK) * DEFAULT_BLOCK)
+
+
+def decode_attention_auto(q, k_cache, v_cache, valid_mask, *, w_live: int | None = None):
+    """Single-token KV-cache attention through B22 when the window is a
+    block multiple.  ``w_live`` (the serving loop's bucketed bound on
+    written slots) crops the cache and mask to ``live_window(w_live, W)``
+    slots as **views**: their batch stride stays W·Hkv·D, the kernel
+    reads them through their strides, and nothing is copied.  An
+    unblocked window runs the dense oracle on a CPU tensor (warn-once,
+    the reference's fallback) and raises on a CUDA one."""
+    W = k_cache.shape[1]
+    if w_live is not None:
+        wl = live_window(w_live, W)
+        if wl < W:
+            k_cache, v_cache, valid_mask = k_cache[:, :wl], v_cache[:, :wl], valid_mask[:, :wl]
+            W = wl
+    if decode_window_block(W) is not None:
+        return decode_attention(q, k_cache, v_cache, valid_mask)
+
+    def plain():
+        from repro_torch.models.layers import decode_attention_oracle
+
+        return decode_attention_oracle(q, k_cache, v_cache, valid_mask)
+
+    return _inexpressible(q, f"decode window W={W} is not a {DEFAULT_BLOCK}-multiple: "
+                             f"the decode kernel B22 does not take it", plain)

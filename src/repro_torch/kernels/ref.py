@@ -11,8 +11,10 @@ factors, as the kernels B2/B5/B8 do; the diagonal-only ones take the
 dense, diagonal and factored forms with a layer axis (W (L, out, in), V
 and the projectors (N, L, …), α (L, N)), as B10/B13/B16, B12/B15/B18 and
 B11/B14/B17 take them: batched products over L, no loop over layers.
-Last come the client-chunked pipeline's cross-Gram of two chunks'
-residual rows (B19) and the block-RLS projector downdate (B20).
+Then come the client-chunked pipeline's cross-Gram of two chunks'
+residual rows (B19) and the block-RLS projector downdate (B20), and last
+the serving path's attention: flash-attention prefill (B21) and decode
+over the ring-buffer cache (B22).
 """
 from __future__ import annotations
 
@@ -250,3 +252,57 @@ def rank_downdate_ref(Q, U, A):
     """Q − U·A·Uᵀ for Q (d, d), U (d, b), A (b, b)."""
     return Q - U @ A @ U.T
 
+
+
+# --------------------------------------------------------------------------
+# attention: the flash-attention prefill kernel (B21) and the ring-buffer
+# decode kernel (B22)
+# --------------------------------------------------------------------------
+NEG_INF = -1e30
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True, q_block: int = 256):
+    """What B21 computes, for q (B, Sq, Hq, D) and k, v (B, Sk, Hkv, D):
+    q, k and v upcast to fp32, scores and p·v in fp32, key t masked for
+    query row s when t > s (causal) with NEG_INF, the sum clamped at
+    1e-30, the output in q's dtype.  Kv head = q head // group.  Exact
+    softmax over all keys, ``q_block`` query rows at a time (the online
+    softmax of the kernel is the same function)."""
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    group = Hq // Hkv
+    kf = k.float().repeat_interleave(group, dim=2)
+    vf = v.float().repeat_interleave(group, dim=2)
+    kpos = torch.arange(Sk, device=q.device)
+    outs = []
+    for q0 in range(0, Sq, q_block):
+        qc = q[:, q0:q0 + q_block].float()
+        s = torch.einsum("bqhd,bkhd->bhqk", qc, kf) * (1.0 / D ** 0.5)
+        if causal:
+            qpos = q0 + torch.arange(qc.shape[1], device=q.device)
+            s = torch.where(qpos[:, None] >= kpos[None, :], s, NEG_INF)
+        m = s.amax(-1, keepdim=True)
+        p = torch.exp(s - m)                    # key 0 is never masked: m is finite
+        o = torch.einsum("bhqk,bkhd->bqhd", p, vf)
+        outs.append(o / p.sum(-1).clamp_min(1e-30).transpose(1, 2)[..., None])
+    return torch.cat(outs, 1).to(q.dtype)
+
+
+def decode_attention_ref(q, k_cache, v_cache, valid_mask):
+    """What B22 computes, for q (B, 1, Hq, D), caches (B, W, Hkv, D) and a
+    mask (B, W): the masked softmax of ``decode_attention.py``'s kernel
+    in fp32 — invalid slots scored NEG_INF and zeroed in p, the sum
+    clamped at 1e-30 — so a row with no valid slot returns **zeros**.
+    (The dense oracle ``models.layers.decode_attention_oracle`` returns
+    mean(v) there; the two agree on every other row.)  Output in q's
+    dtype; head h = hkv · group + g."""
+    B, _, Hq, D = q.shape
+    Hkv = k_cache.shape[2]
+    qg = q.float().reshape(B, Hkv, Hq // Hkv, D)
+    valid = (valid_mask != 0)[:, None, None, :]                       # (B, 1, 1, W)
+    s = torch.einsum("bhgd,bwhd->bhgw", qg, k_cache.float()) * (1.0 / D ** 0.5)
+    s = torch.where(valid, s, NEG_INF)
+    p = torch.exp(s - s.amax(-1, keepdim=True)) * valid
+    o = torch.einsum("bhgw,bwhd->bhgd", p, v_cache.float())
+    o = o / p.sum(-1, keepdim=True).clamp_min(1e-30)
+    return o.reshape(B, 1, Hq, D).to(q.dtype)

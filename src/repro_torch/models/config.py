@@ -103,8 +103,9 @@ class ModelConfig:
     attn_chunk_q: int = 512       # flash-style query block
     attn_chunk_k: int = 1024      # flash-style kv block
     window: int = 8192            # sliding-window size used for long-context decode
-    # attention backend: "oracle" (the plain chunked path); "kernel", and
-    # "auto" on a CUDA device, need the flash kernel B21 (ROADMAP A10)
+    # attention backend: "oracle" (the plain paths); "kernel" (the flash
+    # kernel B21 in prefill, the decode kernel B22); "auto" (the kernels on
+    # a CUDA device where the reference's rule takes them)
     attn_backend: str = "auto"
 
     # distribution policy

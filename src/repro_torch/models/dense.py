@@ -1,5 +1,5 @@
 """Dense decoder-only transformer (llama/qwen family), the port of
-``repro.models.dense``'s training path.
+``repro.models.dense``: training, prefill and decode.
 
 Parameters are stored **stacked over layers** (a leading L axis on
 every ``layers.*`` leaf, the reference's scan layout, which is also the
@@ -7,8 +7,10 @@ layout MA-Echo's stacked kernels aggregate); the forward pass is a
 Python loop over that axis.  Weights are "io" (x @ W).  With
 ``cfg.remat`` each layer is recomputed in the backward pass
 (``torch.utils.checkpoint``), as the reference's ``jax.checkpoint``.
-Prefill and decode (the KV ring buffer) are ROADMAP item A10; the VLM
-variant is A9.
+:func:`prefill` and :func:`decode_step` serve: the decode cache is
+stacked over layers, (nL, B, W, Hkv, D) in the compute dtype, and each
+decode step writes its layer slices in place.  The VLM variant is
+ROADMAP item A9.
 """
 from __future__ import annotations
 
@@ -100,6 +102,26 @@ def attn_block(lp, x, positions, cfg: ModelConfig, *, causal: bool = True):
     return o.reshape(B, S, cfg.n_heads * cfg.hd()) @ lp["wo"].to(cfg.cdtype)
 
 
+def attn_block_decode(lp, x, cache, position, cfg: ModelConfig, *,
+                      w_live: int | None = None):
+    """One-token self attention against a ring-buffer KV cache.
+
+    cache: {"k": (B, W, Hkv, hd), "v": ...}, updated in place; position:
+    a scalar (lockstep fixed batch) or (B,) per-slot positions (the
+    continuous-batching serve loop).  ``w_live`` is the loop's live-slot
+    bound for the cropped decode path.  Returns (y, cache)."""
+    B = x.shape[0]
+    q, k, v = _qkv(lp, x, cfg)
+    position = torch.as_tensor(position, device=x.device)
+    pos = position.expand(B)[:, None] if position.dim() == 0 else position[:, None]
+    q = L.apply_rope(q, pos, cfg.rope_theta)
+    k = L.apply_rope(k, pos, cfg.rope_theta)
+    cache, valid = L.update_kv_cache(cache, k, v, position)
+    o = L.decode_attention(q, cache["k"], cache["v"], valid, backend=cfg.attn_backend,
+                           w_live=w_live)
+    return o.reshape(B, 1, cfg.n_heads * cfg.hd()) @ lp["wo"].to(cfg.cdtype), cache
+
+
 def mlp_block(lp, x, cfg: ModelConfig):
     ct = cfg.cdtype
     return L.swiglu(x, lp["w_gate"].to(ct), lp["w_up"].to(ct), lp["w_down"].to(ct))
@@ -108,6 +130,14 @@ def mlp_block(lp, x, cfg: ModelConfig):
 def layer_fn(lp, x, positions, cfg: ModelConfig):
     x = x + attn_block(lp, L.rms_norm(x, lp["ln1"], cfg.norm_eps), positions, cfg)
     return x + mlp_block(lp, L.rms_norm(x, lp["ln2"], cfg.norm_eps), cfg)
+
+
+def layer_fn_decode(lp, x, cache, position, cfg: ModelConfig, *,
+                    w_live: int | None = None):
+    a, cache = attn_block_decode(lp, L.rms_norm(x, lp["ln1"], cfg.norm_eps), cache,
+                                 position, cfg, w_live=w_live)
+    x = x + a
+    return x + mlp_block(lp, L.rms_norm(x, lp["ln2"], cfg.norm_eps), cfg), cache
 
 
 # --------------------------------------------------------------------------
@@ -135,11 +165,64 @@ def forward(cfg: ModelConfig, params, batch):
             x = checkpoint(layer_fn, lp, x, positions, cfg, use_reentrant=False)
         else:
             x = layer_fn(lp, x, positions, cfg)
-    x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return x @ head.to(cfg.cdtype)
+    return _head(cfg, params, x)
 
 
 def loss_fn(cfg: ModelConfig, params, batch):
     logits = forward(cfg, params, batch)
     return L.softmax_xent(logits, batch["labels"], batch.get("loss_mask"))
+
+
+def _head(cfg: ModelConfig, params, x):
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return L.rms_norm(x, params["ln_f"], cfg.norm_eps) @ head.to(cfg.cdtype)
+
+
+@torch.no_grad()
+def prefill(cfg: ModelConfig, params, batch):
+    """Forward over the prompt, returning ``(last_logits (B, 1, V),
+    kv_cache)``.  Only the final position's logits are formed; each
+    layer's roped K and V become the decode cache, {"k", "v"} of
+    (nL, B, S, Hkv, hd) in the compute dtype.  Inference only."""
+    x, positions = embed_inputs(cfg, params, batch)
+    B, S, _ = x.shape
+    shape = (cfg.n_layers, B, S, cfg.n_kv_heads, cfg.hd())
+    cache = {"k": torch.empty(shape, dtype=cfg.cdtype, device=x.device),
+             "v": torch.empty(shape, dtype=cfg.cdtype, device=x.device)}
+    for l in range(cfg.n_layers):
+        lp = layer_params(params, l)
+        q, k, v = _qkv(lp, L.rms_norm(x, lp["ln1"], cfg.norm_eps), cfg)
+        q = L.apply_rope(q, positions, cfg.rope_theta)
+        k = L.apply_rope(k, positions, cfg.rope_theta)
+        o = L.prefill_attention(q, k, v, causal=True, q_chunk=cfg.attn_chunk_q,
+                                k_chunk=cfg.attn_chunk_k, backend=cfg.attn_backend)
+        x = x + o.reshape(B, S, cfg.n_heads * cfg.hd()) @ lp["wo"].to(cfg.cdtype)
+        x = x + mlp_block(lp, L.rms_norm(x, lp["ln2"], cfg.norm_eps), cfg)
+        cache["k"][l], cache["v"][l] = k, v
+    return _head(cfg, params, x[:, -1:]), cache
+
+
+# ----- decode -------------------------------------------------------------
+def init_cache(cfg: ModelConfig, batch: int, window: int, device=None):
+    """Zero decode cache {"k", "v"} of (nL, batch, window, Hkv, hd) in the
+    compute dtype on ``device`` (a torch device; no default)."""
+    shape = (cfg.n_layers, batch, window, cfg.n_kv_heads, cfg.hd())
+    return {"k": torch.zeros(shape, dtype=cfg.cdtype, device=device),
+            "v": torch.zeros(shape, dtype=cfg.cdtype, device=device)}
+
+
+@torch.no_grad()
+def decode_step(cfg: ModelConfig, params, cache, token, position, *,
+                w_live: int | None = None):
+    """token: (B, 1) integer; position: a scalar (absolute, lockstep) or
+    (B,) per-slot positions (continuous batching).  Returns
+    ``(logits (B, 1, V), cache)``, with the cache written **in place**
+    (the same dict comes back).  ``w_live`` is the serving loop's
+    live-slot bound (see ``layers.decode_attention``).  Inference only."""
+    x = params["embed"][token.long()].to(cfg.cdtype)
+    position = torch.as_tensor(position, device=x.device)
+    for l in range(cfg.n_layers):
+        layer_cache = {"k": cache["k"][l], "v": cache["v"][l]}
+        x, _ = layer_fn_decode(layer_params(params, l), x, layer_cache, position, cfg,
+                               w_live=w_live)
+    return _head(cfg, params, x), cache

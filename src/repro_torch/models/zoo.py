@@ -1,15 +1,19 @@
 """Uniform model API (the port of ``repro.models.zoo``) for the dense
 family; the other families (MoE, SSM, hybrid, encoder-decoder, VLM)
-raise ``NotImplementedError`` naming ROADMAP item A9, and prefill,
-decode and the serve step wait for A10.
+raise ``NotImplementedError`` naming ROADMAP item A9.
 
 ``get_model(cfg)`` returns a :class:`ModelAPI` with
 
   init_params(seed, device)         -> params pytree (device None: CUDA)
   forward(params, batch)            -> logits
   loss_fn(params, batch)            -> scalar
-  input_specs(shape)                -> the batch's inputs as meta tensors
+  prefill(params, batch)            -> (last logits, decode cache)
+  init_cache(batch, window, device) -> zero decode cache (device None: CUDA)
+  decode_step(params, cache, token, position, w_live=)
+                                    -> (logits, cache written in place)
+  input_specs(shape)                -> the inputs as meta tensors
   make_train_step(optimizer)        -> an autograd train step
+  make_serve_step()                 -> a greedy one-token serve step
 """
 from __future__ import annotations
 
@@ -45,16 +49,40 @@ class ModelAPI:
     def loss_fn(self, params, batch):
         return self.mod.loss_fn(self.cfg, params, batch)
 
+    def prefill(self, params, batch):
+        """(last_logits, decode_cache) over the full prompt."""
+        return self.mod.prefill(self.cfg, params, batch)
+
+    def init_cache(self, batch: int, window: int, device=None):
+        return self.mod.init_cache(self.cfg, batch, window, resolve_device(device))
+
+    def decode_step(self, params, cache, token, position, *, w_live: int | None = None):
+        """One token per row; the cache is written in place.  ``w_live``
+        is the serving loop's bucketed bound on written ring-buffer
+        slots (the cropped decode path)."""
+        return self.mod.decode_step(self.cfg, params, cache, token, position, w_live=w_live)
+
+    def cache_specs(self, batch: int, window: int) -> dict:
+        """The decode cache as meta tensors (shape and dtype, no storage)."""
+        return self.mod.init_cache(self.cfg, batch, window, torch.device("meta"))
+
     def input_specs(self, shape: InputShape) -> dict:
-        """Meta-device stand-ins (shape and dtype, no storage) for a
-        train or prefill batch of ``shape``."""
-        if shape.kind not in ("train", "prefill"):
-            raise NotImplementedError(
-                f"{shape.kind!r} inputs need decode, which is not ported yet "
-                f"(ROADMAP item A10)")
+        """Meta-device stand-ins (shape and dtype, no storage) for every
+        input of ``shape``: a train or prefill batch, or one decode step
+        (a token per row against a cache of ``decode_window(shape)``
+        slots)."""
         B, S = shape.global_batch, shape.seq_len
-        spec = torch.empty((B, S), dtype=torch.int32, device="meta")
-        return {"tokens": spec, "labels": spec.clone()}
+        if shape.kind in ("train", "prefill"):
+            spec = torch.empty((B, S), dtype=torch.int32, device="meta")
+            return {"tokens": spec, "labels": spec.clone()}
+        return {"token": torch.empty((B, 1), dtype=torch.int32, device="meta"),
+                "position": torch.empty((), dtype=torch.int32, device="meta"),
+                "cache": self.cache_specs(B, self.decode_window(shape))}
+
+    def decode_window(self, shape: InputShape) -> int:
+        """KV window for a decode shape: the full sequence up to 64k,
+        the sliding ``cfg.window`` beyond."""
+        return self.cfg.window if shape.seq_len > 65536 else shape.seq_len
 
     def make_train_step(self, optimizer) -> Callable:
         """``train_step(params, opt_state, batch, step) -> (params,
@@ -84,6 +112,18 @@ class ModelAPI:
             return params, opt_state, loss / len(micro)
 
         return train_step
+
+    def make_serve_step(self, keep_logits: list | None = None) -> Callable:
+        """``serve_step(params, cache, token, position, w_live=None) ->
+        (next_token (B, 1) int32, cache)``: one greedy decode step.
+        When ``keep_logits`` is a list, each step appends its last
+        logits (B, V) to it (for diagnosing a token mismatch)."""
+        def serve_step(params, cache, token, position, w_live=None):
+            logits, cache = self.decode_step(params, cache, token, position, w_live=w_live)
+            if keep_logits is not None:
+                keep_logits.append(logits[:, -1])
+            return logits[:, -1].argmax(-1)[:, None].to(torch.int32), cache
+        return serve_step
 
 
 def get_model(cfg: ModelConfig) -> ModelAPI:

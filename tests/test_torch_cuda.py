@@ -1,6 +1,7 @@
 """The CUDA kernels B1/B4/B7, B2/B5/B8, B3/B6/B9, the stacked B10/B13/B16,
-B11/B14/B17 and B12/B15/B18, the chunk-pair cross-Gram B19 and the
-block-RLS downdate B20 against their plain versions on the card
+B11/B14/B17 and B12/B15/B18, the chunk-pair cross-Gram B19, the
+block-RLS downdate B20 and the serving path's flash attention B21 and
+decode attention B22 against their plain versions on the card
 (``PYTHONPATH=src python -m pytest --noconftest tests/test_torch_cuda.py``
 on a machine with an NVIDIA Hopper GPU and ``nvcc``; ``--noconftest``
 because ``tests/conftest.py`` imports jax, which such a machine need not
@@ -32,6 +33,8 @@ from repro_torch.kernels.maecho_v_update import (maecho_v_update,
                                                  maecho_v_update_left,
                                                  maecho_v_update_left_stacked,
                                                  maecho_v_update_stacked)
+from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.rank_update import block_rls_update, rank_downdate
 
 pytestmark = pytest.mark.cuda
@@ -543,3 +546,177 @@ def test_chunked_kernel_aggregate_matches_oracle(card):
     got = maecho_aggregate(clients, projs, cfg, backend="kernel")
     torch.testing.assert_close(got["W"], want["W"], atol=1e-3, rtol=0)
     assert ops.maecho_gram_cross is maecho_gram_cross
+
+
+# --------------------------------------------------------------------------
+# serving: B21 (flash attention) and B22 (decode attention)
+# --------------------------------------------------------------------------
+ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}   # bf16: one output rounding
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16), ids=("f32", "bf16"))
+@pytest.mark.parametrize("shape", ((8, 512, 512, 14, 2, 64, True), (2, 200, 200, 14, 2, 64, True),
+                                   (2, 200, 200, 14, 2, 64, False), (1, 130, 130, 4, 1, 96, True),
+                                   (1, 70, 300, 2, 2, 128, False), (2, 40, 40, 4, 2, 32, True)),
+                         ids=lambda s: "x".join(map(str, s)))
+def test_flash_attention_matches_plain(card, shape, dtype):
+    """B21 against its plain version, causal and not, GQA/MQA/MHA, D 32 to
+    128, ragged S; one launch per call."""
+    B, Sq, Sk, Hq, Hkv, D, causal = shape
+    q = torch.randn(B, Sq, Hq, D, device="cuda", generator=card).to(dtype)
+    k = torch.randn(B, Sk, Hkv, D, device="cuda", generator=card).to(dtype)
+    v = torch.randn(B, Sk, Hkv, D, device="cuda", generator=card).to(dtype)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal)
+    assert flash_attention.launches - before == 1 and got.dtype == dtype
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), ref.flash_attention_ref(q, k, v, causal=causal).float(),
+                               atol=tol, rtol=tol)
+
+
+def test_flash_attention_reads_strided_inputs(card):
+    """q, k, v sliced out of one fused (B, S, H, D) buffer are read in place."""
+    qkv = torch.randn(2, 96, 10, 64, device="cuda", generator=card)
+    q, k, v = qkv[:, :, :6], qkv[:, :, 6:8], qkv[:, :, 8:]
+    torch.testing.assert_close(flash_attention(q, k, v),
+                               ref.flash_attention_ref(q, k, v), atol=2e-5, rtol=2e-5)
+
+
+def _decode_inputs(card, B, W, Hkv, group, D, fill, dtype):
+    q = torch.randn(B, 1, Hkv * group, D, device="cuda", generator=card).to(dtype)
+    kc = torch.randn(B, W, Hkv, D, device="cuda", generator=card).to(dtype)
+    vc = torch.randn(B, W, Hkv, D, device="cuda", generator=card).to(dtype)
+    pos = fill - 1
+    idx = torch.arange(W, device="cuda")
+    last = pos - torch.remainder(pos - idx, W)
+    valid = ((last >= 0) & (last > pos - W)).expand(B, W).clone()
+    return q, kc, vc, valid
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16), ids=("f32", "bf16"))
+@pytest.mark.parametrize("case", ((8, 640, 2, 7, 64, 576), (8, 640, 2, 7, 64, 700),
+                                  (2, 200, 2, 4, 64, 150), (3, 256, 1, 16, 128, 30),
+                                  (1, 128, 4, 1, 32, 128)),
+                         ids=lambda c: "x".join(map(str, c)))
+def test_decode_attention_matches_plain(card, case, dtype):
+    """B22 against its plain version: Qwen2-0.5B's serving shape filled to
+    576 and wrapped, a ragged W, MQA with a group of 16, MHA; row 0 with
+    no valid slot gives zeros; one launch per call."""
+    B, W, Hkv, group, D, fill = case
+    q, kc, vc, valid = _decode_inputs(card, B, W, Hkv, group, D, fill, dtype)
+    valid[0] = False
+    before = decode_attention.launches
+    got = decode_attention(q, kc, vc, valid)
+    assert decode_attention.launches - before == 1 and got.dtype == dtype
+    assert bool((got[0] == 0).all())
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), ref.decode_attention_ref(q, kc, vc, valid).float(),
+                               atol=tol, rtol=tol)
+    torch.testing.assert_close(decode_attention(q, kc, vc, valid), got, atol=0, rtol=0)
+
+
+def test_decode_attention_reads_a_w_live_view(card):
+    """The serving crop hands B22 a view of the cache (batch stride
+    W·Hkv·D) and of an expanded mask (batch stride 0), with no copy."""
+    q, kc, vc, valid = _decode_inputs(card, 4, 1024, 2, 7, 64, 200, torch.bfloat16)
+    mask = valid[:1].expand(4, 1024)
+    seen = []
+    orig = ops.decode_attention
+
+    def spy(q_, k_, v_, m_):
+        seen.append((k_.stride(0), k_.data_ptr() == kc.data_ptr(), m_.stride(0)))
+        return orig(q_, k_, v_, m_)
+
+    ops.decode_attention = spy
+    try:
+        got = ops.decode_attention_auto(q, kc, vc, mask, w_live=200)
+    finally:
+        ops.decode_attention = orig
+    assert seen == [(1024 * 2 * 64, True, 0)]
+    torch.testing.assert_close(got.float(), ref.decode_attention_ref(q, kc, vc, mask).float(),
+                               atol=1e-2, rtol=1e-2)
+
+
+def test_flash_attention_backward_raises(card):
+    q = torch.randn(1, 64, 2, 32, device="cuda", generator=card, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        flash_attention(q, q.detach(), q.detach()).sum().backward()
+
+
+def test_kernel_backend_raises_on_inexpressible_shapes(card):
+    from repro_torch.models import layers as L
+
+    q = torch.randn(1, 32, 2, 32, device="cuda", generator=card)
+    k = torch.randn(1, 100, 2, 32, device="cuda", generator=card)
+    with pytest.raises(ValueError, match="not expressible"):
+        L.prefill_attention(q, q, q, q_offset=4, backend="kernel")
+    with pytest.raises(ValueError, match="not expressible"):
+        L.prefill_attention(q, k, k, causal=False, backend="kernel")
+    with pytest.raises(ValueError, match="128-multiple"):
+        L.decode_attention(q[:, :1], k, k, torch.ones(1, 100, dtype=torch.bool, device="cuda"),
+                           backend="kernel")
+    with pytest.raises(ValueError, match="not expressible"):
+        ops.flash_attention_auto(q, k, k, causal=True)
+    # "auto" keeps the reference's rule: an ineligible shape runs the plain path
+    torch.testing.assert_close(L.prefill_attention(q, q, q, q_offset=4, backend="auto"),
+                               L.prefill_attention(q, q, q, q_offset=4, backend="oracle"))
+
+
+def test_auto_backend_launches_flash_at_noncausal_block_multiple(card):
+    """Non-causal Sk = 384 (a 128- but not 256-multiple) is eligible under
+    the reference's rule: ``"auto"`` launches B21 once and agrees with the
+    plain version."""
+    from repro_torch.models import layers as L
+
+    q = torch.randn(2, 40, 14, 64, device="cuda", generator=card)
+    k, v = (torch.randn(2, 384, 2, 64, device="cuda", generator=card) for _ in range(2))
+    before = flash_attention.launches
+    got = L.prefill_attention(q, k, v, causal=False, backend="auto")
+    assert flash_attention.launches - before == 1
+    torch.testing.assert_close(got, ref.flash_attention_ref(q, k, v, causal=False),
+                               atol=2e-5, rtol=0)
+
+
+def test_attention_wrappers_reject_bad_operands(card):
+    q = torch.randn(1, 16, 2, 32, device="cuda", generator=card)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        flash_attention(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError, match="mixed dtypes"):
+        flash_attention(q, q.bfloat16(), q)
+    with pytest.raises(ValueError, match="several devices"):
+        flash_attention(q, q.cpu(), q)
+    with pytest.raises(ValueError, match="contiguous last axis"):
+        flash_attention(q, q.transpose(1, 3).contiguous().transpose(1, 3), q)
+    with pytest.raises(ValueError, match="D <= 128"):
+        big = torch.zeros(1, 4, 1, 160, device="cuda")
+        flash_attention(big, big, big)
+    mask = torch.ones(1, 16, dtype=torch.bool, device="cuda")
+    with pytest.raises(ValueError, match="valid_mask"):
+        decode_attention(q[:, :1], q, q, mask.cpu())
+    with pytest.raises(ValueError, match="valid_mask"):
+        decode_attention(q[:, :1], q, q, mask.int())
+    with pytest.raises(ValueError, match="one token"):
+        decode_attention(q[:, :2], q, q, mask)
+
+
+def test_serving_kernel_tokens_match_oracle(card):
+    """The smoke Qwen2-0.5B served at a 256-slot window: the kernel
+    backend launches B21 once per prefill layer and B22 once per decode
+    layer and step, and emits the oracle backend's tokens."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.serve import run_fixed
+    from repro_torch.models.zoo import get_model
+
+    cfg = get_smoke_config("qwen2-0.5b")
+    params = get_model(cfg).init_params(0, device="cuda")
+    prompts = torch.randint(0, cfg.vocab, (3, 250), device="cuda", generator=card,
+                            dtype=torch.int32)
+    toks = {}
+    for backend in ("kernel", "oracle"):
+        c = cfg.replace(attn_backend=backend)
+        before = (flash_attention.launches, decode_attention.launches)
+        toks[backend], stats = run_fixed(c, get_model(c), params, prompts, 6)
+        counts = (flash_attention.launches - before[0], decode_attention.launches - before[1])
+        assert stats["window"] == 256
+        assert counts == ((cfg.n_layers, cfg.n_layers * 5) if backend == "kernel" else (0, 0))
+    assert torch.equal(toks["kernel"], toks["oracle"])

@@ -62,6 +62,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
              lambda: maecho_aggregate([layers, layers]),
              lambda: interop.params_from_numpy({"a": x}),
              lambda: get_model(get_smoke_config("qwen2-0.5b")).init_params(0),
+             lambda: get_model(get_smoke_config("qwen2-0.5b")).init_cache(1, 128),
              lambda: aggregate_llm(get_smoke_config("qwen2-0.5b"), [{"a": x}] * 2)]
     for call in calls:
         with pytest.raises(RuntimeError, match="cuda"):

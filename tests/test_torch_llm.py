@@ -125,11 +125,22 @@ def test_layers_match_reference():
 
 
 def test_prefill_attention_kernel_backend_raises():
-    q = torch.zeros(1, 8, 2, 16)
-    with pytest.raises(NotImplementedError, match="B21"):
-        tL.prefill_attention(q, q, q, backend="kernel")
+    """``"kernel"`` on a CPU tensor runs B21's plain version, equal to
+    ``"oracle"``; on a shape B21 cannot express it warns and runs the
+    plain chunked path; an unknown backend still raises."""
+    r = np.random.RandomState(4)
+    q, k, v = (torch.from_numpy(r.randn(1, 40, h, 16).astype(np.float32)) for h in (4, 2, 2))
+    for causal in (True, False):
+        torch.testing.assert_close(
+            tL.prefill_attention(q, k, v, causal=causal, backend="kernel"),
+            tL.prefill_attention(q, k, v, causal=causal, backend="oracle"),
+            atol=2e-5, rtol=2e-5)
+    from repro_torch.kernels import ops
+    ops._warned_fallbacks.clear()
+    with pytest.warns(RuntimeWarning, match="not expressible"):
+        tL.prefill_attention(q, k, v, q_offset=3, backend="kernel")
     with pytest.raises(ValueError, match="unknown attention backend"):
-        tL.prefill_attention(q, q, q, backend="flash")
+        tL.prefill_attention(q, k, v, backend="flash")
 
 
 def test_forward_and_loss_match_reference(ref_side):
@@ -157,11 +168,17 @@ def test_build_projections_match_reference(ref_side):
 
 
 def test_input_specs_are_meta_tensors():
-    specs = get_model(get_smoke_config(ARCH)).input_specs(InputShape("t", 64, 8, "train"))
+    model = get_model(get_smoke_config(ARCH))
+    specs = model.input_specs(InputShape("t", 64, 8, "train"))
     assert {k: (tuple(v.shape), v.dtype, v.device.type) for k, v in specs.items()} == {
         k: ((8, 64), torch.int32, "meta") for k in ("tokens", "labels")}
-    with pytest.raises(NotImplementedError, match="A10"):
-        get_model(get_smoke_config(ARCH)).input_specs(InputShape("d", 64, 8, "decode"))
+    specs = model.input_specs(InputShape("d", 64, 8, "decode"))
+    assert {k: (tuple(v.shape), v.dtype, v.device.type) for k, v in
+            [("token", specs["token"]), ("position", specs["position"]),
+             ("k", specs["cache"]["k"]), ("v", specs["cache"]["v"])]} == {
+        "token": ((8, 1), torch.int32, "meta"), "position": ((), torch.int32, "meta"),
+        "k": ((2, 8, 64, 2, 32), torch.float32, "meta"),
+        "v": ((2, 8, 64, 2, 32), torch.float32, "meta")}
 
 
 def test_default_llm_projections_shapes():
