@@ -107,7 +107,8 @@ Added with client chunking (``MAEchoConfig.client_chunk``), B19 and B20
 
 12. B19 (the chunk-pair cross-Gram) against its plain version and a
    float64 product at (ca, cb, D) = (64, 64, 400·784), (64, 64,
-   4864·896), (37, 64, 60 001) and (1, 64, 313 600), bitwise
+   4864·896), (37, 64, 60 001), (1, 64, 313 600), the LLM embedding's
+   chunk-1 pair (1, 1, 896·151 936) and (16, 16, 400·784), bitwise
    reproducible and exactly symmetric on a diagonal block; B20 (the
    block-RLS downdate) at (d, b) = (512, 64), (784, 128) and (896, 128)
    against its plain version and float64 within 1e-3.  Both timed from
@@ -154,10 +155,11 @@ Added with serving (after phase 15, once the LLM silos are freed; phase
    empty row (zeros), and on a ``w_live`` view of a 1024-slot cache;
    both bitwise reproducible, timed in bf16 from CUDA-graph replays
    beside their plain versions and ``scaled_dot_product_attention``
-   (timed only).  Then ``run_fixed`` on 8 requests x prompt 512 x gen 64
+   (timed only), B21 in fp32 too (its SIMT body; own ``[kernels]``
+   line).  Then ``run_fixed`` on 8 requests x prompt 512 x gen 64
    with ``attn_backend="auto"`` (bf16; window ``round_window(576)`` =
-   640): B21 24 launches, B22 24 x 63, no other kernel; prefill time,
-   decode tokens/s and peak memory printed.  At fp32 compute the kernel
+   640): B21 24 launches, B22 24 x 63, no other kernel; prefill time
+   (beside run 18d's), decode tokens/s and peak memory printed.  At fp32 compute the kernel
    and oracle backends emit identical tokens, prefill logits within
    1e-3.  Continuous batching at the reference ``serve.py`` defaults
    (8 requests, 4 slots, arrival every 3 steps, prompt 64, gen 32,
@@ -223,6 +225,9 @@ LLM_RANK = 89           # table6_svd.py's "factored0.1" at d_model: int(0.1 * 89
 SERVE_B, SERVE_PROMPT, SERVE_GEN = 8, 512, 64
 ARRIVAL = dict(requests=8, slots=4, arrival_every=3, prompt=64, gen=32)
 LOGIT_ATOL = 1e-3       # kernel vs oracle prefill logits at fp32 compute
+# the fixed batch's prefill in run 18d, first and second run (PERF.md §5;
+# H100 80GB HBM3, 700 W), before B21 ran on the bf16 tensor cores
+RUN_18D_PREFILL_MS = (42.314, 26.947)
 # B1/B2 (k = 78)/B3 at W0, N = 4, in run Q (PERF.md §6; H100 80GB HBM3, 700 W)
 RUN_Q_MS = {"maecho_gram": 0.3078, "maecho_gram_left": 0.0426, "maecho_gram_diag": 0.0225}
 REPLACES = {"maecho_gram": "src/repro/kernels/maecho_gram.py:131",
@@ -961,7 +966,8 @@ def phase_chunk_kernels(torch, kern, ref):
     err = {"maecho_gram_cross": 0.0, "rank_downdate": 0.0}
     timings, library = {}, {}
     for label, ca, cb, D in (("W0", 64, 64, 400 * 784), ("w_gate", 64, 64, 4864 * 896),
-                             ("ragged", 37, 64, 60001), ("one", 1, 64, 313600)):
+                             ("ragged", 37, 64, 60001), ("one", 1, 64, 313600),
+                             ("embed", 1, 1, 896 * 151936), ("W0 16", 16, 16, 400 * 784)):
         Ra = torch.randn(ca, D, device="cuda", generator=gen)
         Rb = torch.randn(cb, D, device="cuda", generator=gen)
         tag = f"{label} (ca={ca}, cb={cb}, D={D})"
@@ -1240,12 +1246,14 @@ def phase_serve_kernels(torch, kern, ref):
     flash, dec = attention_cases(torch, gen)
     err, timings, library = {}, {}, {}
     for tag, (q, k, v) in flash.items():
-        e = (kern.flash_attention(q, k, v).float()
-             - ref.flash_attention_ref(q, k, v).float()).abs().max().item()
+        got = kern.flash_attention(q, k, v)
+        e = (got.float() - ref.flash_attention_ref(q, k, v).float()).abs().max().item()
         tol = 2e-5 if q.dtype == torch.float32 else 1e-2
         print(f"[kernels] serve {tag} (B={q.shape[0]}, S={q.shape[1]}, 14/2 heads of 64, "
               f"causal) flash_attention max_abs_err {e:.3e} tol {tol:.0e}")
         check(e <= tol, f"flash_attention disagrees with its plain version at {tag}")
+        check(torch.equal(got, kern.flash_attention(q, k, v)),
+              f"flash_attention is not reproducible at {tag}")
         if tag == "main bf16":
             err["flash_attention"] = e
     for tag, (q, kc, vc, mask) in dec.items():
@@ -1280,6 +1288,18 @@ def phase_serve_kernels(torch, kern, ref):
     print(f"[kernels] serve flash_attention: all flops at the fp32 SIMT rate "
           f"{flops / FP32_FLOPS * 1e3:.4f} ms; library scaled_dot_product_attention(is_causal, "
           f"enable_gqa) {library[('flash_attention', 'serve')]:.4f} ms")
+    # fp32 operands (the exactness paths) run B21's SIMT body: bound at the
+    # fp32 rate (TF32 is not exact), 4-byte operands
+    q, k, v = flash["main f32"]
+    time_cases(torch, "serve f32", {"flash_attention": (
+        lambda: kern.flash_attention(q, k, v), lambda: ref.flash_attention_ref(q, k, v),
+        flops, 2 * nbytes)}, timings, 20)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    library[("flash_attention", "serve f32")] = graph_ms(
+        torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                      enable_gqa=True), 20)
+    print(f"[kernels] serve f32 flash_attention: library scaled_dot_product_attention"
+          f"(is_causal, enable_gqa) {library[('flash_attention', 'serve f32')]:.4f} ms")
 
     q, kc, vc, mask = dec["main bf16 fill 576"]
     n_valid = int(mask.sum())
@@ -1397,11 +1417,13 @@ def check_serve(r: dict) -> None:
     continuous vs fixed batching."""
     nL, a = r["cfg"].n_layers, ARRIVAL
     f, w = r["fixed"], r["fixed_warm"]
-    for tag, st in (("first", f), ("second", w)):
+    for tag, st, before in (("first", f, RUN_18D_PREFILL_MS[0]),
+                            ("second", w, RUN_18D_PREFILL_MS[1])):
         print(f"[serve] fixed batch ({tag} run), {SERVE_B} requests x prompt {SERVE_PROMPT} x "
               f"gen {SERVE_GEN}, {r['cfg'].compute_dtype}, attn_backend={r['cfg'].attn_backend}, "
               f"window {st['window']}: prefill "
-              f"{st['t_prefill'] * 1e3:.3f} ms, decode {st['t_decode']:.3f} s "
+              f"{st['t_prefill'] * 1e3:.3f} ms (run 18d: {before:.3f} ms), decode "
+              f"{st['t_decode']:.3f} s "
               f"({st['tok_s']:.1f} tok/s, {st['t_decode'] / (SERVE_GEN - 1) * 1e3:.3f} ms a step)")
     pr = r["profile"]
     print(f"[profile] serve decode, {pr['steps']} steps under torch.profiler: wall "

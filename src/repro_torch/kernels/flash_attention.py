@@ -2,10 +2,12 @@
 ``repro/kernels/flash_attention.py::flash_attention``).
 
 Causal or non-causal GQA attention over q (B, Sq, Hq, D) and k, v
-(B, Sk, Hkv, D), float32 or bfloat16, fp32 math, the output in q's
-dtype.  The kernel reads the (B, S, H, D) layout through its strides and
-masks ragged sequence lengths itself, so nothing is transposed or
-padded; D ≤ 128.
+(B, Sk, Hkv, D), float32 or bfloat16, fp32 scores and sums, the output
+in q's dtype.  bfloat16 runs on the tensor cores (q·kᵀ exact with fp32
+accumulation, p·v with the fp32 p split into three bf16 terms); float32
+runs a SIMT fp32 body.  The kernel reads the (B, S, H, D) layout
+through its strides and masks ragged sequence lengths itself, so
+nothing is transposed or padded; D ≤ 128.
 
 The reference has no backward kernel (``flash_attention.py`` defines no
 ``custom_vjp``), so B21 is forward-only: it is reached through a

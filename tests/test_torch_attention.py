@@ -15,6 +15,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 import strategies as strat
 from repro.kernels import ops as jops
@@ -83,6 +85,75 @@ def test_flash_attention_bf16_matches_reference_kernel():
     got = ref.flash_attention_ref(tq, tk, tv, causal=True)
     assert got.dtype == torch.bfloat16
     _close(got, np.asarray(want, np.float32), 0.05)
+
+
+def _top8(x):
+    """The top 8 significant bits of fp32 x (x truncated to bf16), as fp32."""
+    return (x.view(torch.int32) & -65536).view(torch.float32)
+
+
+def _split3(p):
+    """B21's split of an fp32 p into three bf16 terms: hi = the top 8
+    significant bits of p, mid those of p - hi, lo = p - hi - mid."""
+    hi = _top8(p)
+    mid = _top8(p - hi)
+    return hi, mid, p - hi - mid
+
+
+@given(st.integers(-100, -1), st.integers(0, 2 ** 23 - 1))
+@settings(max_examples=200, deadline=None)
+def test_bf16_split_of_p_is_exact(exponent, mantissa):
+    """Any fp32 p in [2^-100, 1] is hi + mid + lo exactly, and each term
+    is a bf16 value: the three take p's 24 significant bits 8 at a time."""
+    p = torch.tensor([np.ldexp(1.0 + mantissa / 2.0 ** 23, exponent), 1.0, 2.0 ** -100],
+                     dtype=torch.float32)
+    terms = _split3(p)
+    for t in terms:
+        assert torch.equal(t.bfloat16().float(), t)
+    assert torch.equal(sum(t.double() for t in terms), p.double())
+
+
+def _emulated_flash_bf16(q, k, v, causal):
+    """B21's bf16 scheme in torch on the CPU, fp32 output (before the
+    rounding to bf16): 64-row kv tiles up to the causal limit, q.k^T of
+    the bf16 operands summed in fp32, the online softmax, and p.v as the
+    three products hi.v + mid.v + lo.v into one fp32 accumulator."""
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    qf = q.float().transpose(1, 2)                                    # (B, Hq, Sq, D)
+    kf, vf = (x.float().repeat_interleave(Hq // Hkv, dim=2).transpose(1, 2) for x in (k, v))
+    m = torch.full((B, Hq, Sq, 1), -1e30)
+    l = torch.zeros(B, Hq, Sq, 1)
+    acc = torch.zeros(B, Hq, Sq, D)
+    rows = torch.arange(Sq)[:, None]
+    for k0 in range(0, min(Sk, Sq) if causal else Sk, 64):
+        cols = k0 + torch.arange(min(64, Sk - k0))[None, :]
+        ok = (cols <= rows) if causal else torch.ones_like(cols, dtype=torch.bool)
+        s = torch.where(ok, qf @ kf[:, :, k0:k0 + 64].transpose(2, 3) * (1.0 / D ** 0.5), -1e30)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.where(ok, torch.exp(s - m_new), 0.0)
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1, keepdim=True)
+        acc = acc * corr
+        for t in _split3(p):
+            acc = acc + t.bfloat16().float() @ vf[:, :, k0:k0 + 64]
+        m = m_new
+    return (acc / l.clamp_min(1e-30)).transpose(1, 2)
+
+
+@pytest.mark.parametrize("causal", (True, False), ids=("causal", "full"))
+@pytest.mark.parametrize("shape", ((128, 4, 2, 64), (256, 8, 2, 64), (200, 4, 1, 96),
+                                   (64, 2, 2, 40)), ids=lambda s: "x".join(map(str, s)))
+def test_bf16_scheme_matches_reference_kernel(shape, causal):
+    """The emulated bf16 tensor-core scheme against the reference's
+    flash_attention (interpret mode) on the same bf16-valued inputs in
+    fp32, at the fp32 tolerance 2e-5, before the output rounding."""
+    S, Hq, Hkv, D = shape
+    q, k, v = (torch.from_numpy(x).bfloat16() for x in _qkv(S + Hq + D, 2, S, S, Hq, Hkv, D))
+    jq, jk, jv = (x.float().numpy() for x in (q, k, v))
+    want = (jops.flash_attention(jq, jk, jv, causal=causal, bq=128, bk=128) if S % 128 == 0
+            else jops.flash_attention_auto(jq, jk, jv, causal=causal))
+    _close(_emulated_flash_bf16(q, k, v, causal), np.asarray(want), 2e-5)
 
 
 def test_flash_attention_has_no_backward():

@@ -474,9 +474,12 @@ def test_gram_kernels_beyond_54_clients(card, N):
 
 
 # B19 at ragged client counts and a D no multiple of a k-step; Ra is Rb
-# for a diagonal block
+# for a diagonal block.  Every tile (64, 16, 1-4 on either axis; tiny
+# pairs) and both load widths (float4 where D % 4 == 0, scalar otherwise)
 @pytest.mark.parametrize("shape", ((1, 7, 513), (37, 64, 60001), (65, 130, 4097),
-                                   (64, 64, 313600)))
+                                   (64, 64, 313600), (1, 1, 2 ** 20 + 3), (1, 64, 313600),
+                                   (3, 5, 4097), (16, 16, 60001), (64, 16, 313600),
+                                   (2, 3, 2 ** 20)))
 def test_gram_cross_matches_plain(card, shape):
     """B19 against its plain version and a float64 product, bitwise
     reproducible, and exactly symmetric on a diagonal block."""
@@ -557,11 +560,17 @@ ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}   # bf16: one output roun
 @pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16), ids=("f32", "bf16"))
 @pytest.mark.parametrize("shape", ((8, 512, 512, 14, 2, 64, True), (2, 200, 200, 14, 2, 64, True),
                                    (2, 200, 200, 14, 2, 64, False), (1, 130, 130, 4, 1, 96, True),
-                                   (1, 70, 300, 2, 2, 128, False), (2, 40, 40, 4, 2, 32, True)),
+                                   (1, 70, 300, 2, 2, 128, False), (2, 40, 40, 4, 2, 32, True),
+                                   (2, 64, 64, 4, 2, 64, False), (2, 64, 64, 4, 2, 64, True),
+                                   (1, 100, 100, 4, 2, 40, True), (1, 100, 100, 4, 2, 80, False),
+                                   (1, 100, 100, 4, 2, 36, True), (3, 1, 1, 4, 2, 64, True)),
                          ids=lambda s: "x".join(map(str, s)))
 def test_flash_attention_matches_plain(card, shape, dtype):
     """B21 against its plain version, causal and not, GQA/MQA/MHA, D 32 to
-    128, ragged S; one launch per call."""
+    128 (36, 40, 80 and 96 zero-filled to 64 or 128; at D = 36 the bf16
+    rows are not 16-byte aligned and are copied element by element), one
+    kv tile (S = 64), Sq = Sk = 1, ragged S; one launch per call, bitwise
+    reproducible."""
     B, Sq, Sk, Hq, Hkv, D, causal = shape
     q = torch.randn(B, Sq, Hq, D, device="cuda", generator=card).to(dtype)
     k = torch.randn(B, Sk, Hkv, D, device="cuda", generator=card).to(dtype)
@@ -572,14 +581,17 @@ def test_flash_attention_matches_plain(card, shape, dtype):
     tol = ATTN_TOL[dtype]
     torch.testing.assert_close(got.float(), ref.flash_attention_ref(q, k, v, causal=causal).float(),
                                atol=tol, rtol=tol)
+    assert torch.equal(got, flash_attention(q, k, v, causal=causal))
 
 
-def test_flash_attention_reads_strided_inputs(card):
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16), ids=("f32", "bf16"))
+def test_flash_attention_reads_strided_inputs(card, dtype):
     """q, k, v sliced out of one fused (B, S, H, D) buffer are read in place."""
-    qkv = torch.randn(2, 96, 10, 64, device="cuda", generator=card)
+    qkv = torch.randn(2, 96, 10, 64, device="cuda", generator=card).to(dtype)
     q, k, v = qkv[:, :, :6], qkv[:, :, 6:8], qkv[:, :, 8:]
-    torch.testing.assert_close(flash_attention(q, k, v),
-                               ref.flash_attention_ref(q, k, v), atol=2e-5, rtol=2e-5)
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(flash_attention(q, k, v).float(),
+                               ref.flash_attention_ref(q, k, v).float(), atol=tol, rtol=tol)
 
 
 def _decode_inputs(card, B, W, Hkv, group, D, fill, dtype):
