@@ -168,6 +168,17 @@ Added with serving (after phase 15, once the LLM silos are freed; phase
    request, step and top-2 logit gap, and that step's logits within
    1e-3).
 
+Added with B22 as one cluster launch and B16 on 3xTF32 ``wgmma``: right
+after the build, the SASS of B16's library (``cuobjdump -sass``) must hold
+TF32 ``HGMMA`` instructions; phase 6 holds B16 bitwise reproducible and
+prints ``torch.bmm(D, P)`` (TF32 off, the product alone) beside it at wq
+and w_gate; phase 16 checks that one B22 call is one kernel
+(``torch.profiler``) and prints B22's share of the ``[profile]`` decode
+window.  Every fp32 kernel bound by its products is bounded at a third of
+the TF32 rate (``FP32_TOL_FLOPS``: three TF32 products keep fp32
+accuracy), with the fp32 SIMT figure printed beside it; the elementwise
+diagonal kernels stay at the fp32 SIMT rate.
+
 It prints each phase's time, the QP's and the kernels' time inside a
 kernel aggregate of each path (CUDA events around each call), a
 ``{"kernels": [...]}`` JSON line, the card's name and power limit, and
@@ -188,6 +199,12 @@ SRC = ROOT / "src"
 
 FP32_FLOPS = 67e12      # H100 SXM fp32 peak outside the tensor cores
 BF16_FLOPS = 989e12     # H100 SXM dense bf16 tensor-core peak
+TF32_FLOPS = 495e12     # H100 SXM dense TF32 tensor-core peak
+# fastest rate of fp32 products that meets the fp32 tolerances: each product
+# as three TF32 products (3xTF32: hi.hi + hi.lo + lo.hi, as B16 runs), so a
+# third of the TF32 rate.  Elementwise fp32 work (the diagonal kernels)
+# stays at FP32_FLOPS.
+FP32_TOL_FLOPS = TF32_FLOPS / 3
 HBM_BYTES = 3.35e12     # H100 SXM HBM3 bandwidth
 # fastest exact rate of bf16 attention (B21, B22): q.k^T, half the flops, is
 # bf16 x bf16, exact on the tensor cores with fp32 accumulation; p.v takes p in
@@ -289,22 +306,52 @@ def graph_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def check_tf32_sass(build) -> None:
+    """B16 runs 3xTF32 on the tensor cores: the SASS of its library must
+    hold TF32 HGMMA (wgmma) instructions."""
+    lib = build.library_path("maecho_v_update_stacked")
+    sass = subprocess.run([build.cuda_tool("cuobjdump"), "-sass", str(lib)], check=True,
+                          capture_output=True, text=True).stdout
+    hgmma = [line.split(";")[0].strip() for line in sass.splitlines()
+             if "HGMMA" in line and "TF32" in line]
+    print(f"[sass] maecho_v_update_stacked ({lib.name}): {len(hgmma)} TF32 HGMMA "
+          f"instructions; first: {hgmma[0] if hgmma else None}")
+    check(bool(hgmma), "maecho_v_update_stacked's SASS holds no TF32 HGMMA instruction")
+
+
+def kernel_names(torch, fn) -> list:
+    """Names of the CUDA kernels one ``fn()`` launches (``torch.profiler``,
+    after a warm-up call)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
 def time_cases(torch, label: str, cases: dict, timings: dict, reps: int = 50) -> None:
     """Time each ``name: (kernel fn, plain fn, flops, bytes[, rate])`` of
     one leaf and record ``timings[(name, label)] = (ms, plain ms, bound
     ms, bound by)``, device times from CUDA graphs of ``reps`` calls.
-    ``rate`` is the fastest exact operation rate for the case's types
-    (``FP32_FLOPS`` unless given)."""
+    ``rate`` is the fastest operation rate that meets the case's
+    tolerances (``FP32_TOL_FLOPS`` unless given; then the bound at the
+    fp32 SIMT rate is printed beside it)."""
     for name, (k_fn, p_fn, flops, nbytes, *rate) in cases.items():
         ms, plain = graph_ms(torch, k_fn, reps), graph_ms(torch, p_fn, reps)
         b, by = bound_ms(flops, nbytes, *rate)
         timings[(name, label)] = (ms, plain, b, by)
+        simt = ("" if rate else
+                f"; at the fp32 SIMT rate {bound_ms(flops, nbytes, FP32_FLOPS)[0]:.4f} ms")
         print(f"[kernels] {label} {name}: {ms:.4f} ms, plain {plain:.4f} ms "
               f"({reps} calls per graph), bound {b:.4f} ms ({by}: "
-              f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB)")
+              f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB{simt})")
 
 
-def bound_ms(flops: float, nbytes: float, rate: float = FP32_FLOPS) -> tuple:
+def bound_ms(flops: float, nbytes: float, rate: float = FP32_TOL_FLOPS) -> tuple:
     t_ops, t_bytes = flops / rate * 1e3, nbytes / HBM_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
@@ -527,7 +574,7 @@ def phase_diag_kernels(torch, kern, ref):
     # Bounds: the elementwise residual (W − Vᵢ)·pᵢ costs 2 operations an
     # element and client, the symmetric pair contraction N(N+1) more;
     # Eq. 7 adds the α-scaled client sum, Eq. 11 (norm off) 1 − frac·pᵢ
-    # and the add to Vᵢ.
+    # and the add to Vᵢ; elementwise, at the fp32 SIMT rate.
     timings = {}
     for label, out_d, in_d, N in (("W0", 400, 784, 4), ("W1", 200, 400, 4)):
         W, V, p, alpha = inputs(out_d, in_d, N)
@@ -537,15 +584,15 @@ def phase_diag_kernels(torch, kern, ref):
             "maecho_gram_diag": (lambda: kern.maecho_gram_diag(W, V, p),
                                  lambda: ref.maecho_gram_diag_ref(W, V, p),
                                  2.0 * N * OI + N * (N + 1) * OI,
-                                 4.0 * (OI + N * OI + NI + N * N)),
+                                 4.0 * (OI + N * OI + NI + N * N), FP32_FLOPS),
             "maecho_update_diag": (lambda: kern.maecho_update_diag(W, V, p, alpha, eta),
                                    lambda: ref.maecho_update_diag_ref(W, V, p, alpha, eta),
                                    4.0 * N * OI + 2.0 * OI,
-                                   4.0 * (2 * OI + N * OI + NI + N)),
+                                   4.0 * (2 * OI + N * OI + NI + N), FP32_FLOPS),
             "maecho_v_update_diag": (lambda: kern.maecho_v_update_diag(Wn, V, p, frac),
                                      lambda: ref.maecho_v_update_diag_ref(Wn, V, p, frac),
                                      5.0 * N * OI,
-                                     4.0 * (OI + 2 * N * OI + NI)),
+                                     4.0 * (OI + 2 * N * OI + NI), FP32_FLOPS),
         }
         time_cases(torch, label, cases, timings)
     return err, timings
@@ -594,6 +641,9 @@ def phase_stacked_kernels(torch, kern, ref):
                       f"tol {APPLY_ATOL:.0e}")
                 check(e <= APPLY_ATOL, f"{v} (norm={norm}) disagrees at {tag}")
                 check((Vn - V).abs().max().item() > 0, f"{v} left V unchanged")
+                if proj is P:           # B16 (3xTF32): bitwise reproducible too
+                    check(torch.equal(Vn, getattr(kern, v)(Wn, V, proj, frac, norm)),
+                          f"{v} (norm={norm}) is not reproducible at {tag}")
                 err[v] = max(err[v], e)
         del W, V, P, p
     torch.cuda.synchronize()
@@ -618,11 +668,12 @@ def phase_stacked_kernels(torch, kern, ref):
                      u: (gemm + 3.0 * N * OI + 2.0 * OI,
                          4.0 * (2 * OI + N * OI + N * II + L * N)),
                      v: (gemm + 4.0 * N * OI, 4.0 * (OI + 2 * N * OI + N * II))}
-        else:
+        else:                   # elementwise: at the fp32 SIMT rate
             costs = {g: (2.0 * N * OI + N * (N + 1) * OI,
-                         4.0 * (OI + N * OI + NI + L * N * N)),
-                     u: (4.0 * N * OI + 2.0 * OI, 4.0 * (2 * OI + N * OI + NI + L * N)),
-                     v: (5.0 * N * OI, 4.0 * (OI + 2 * N * OI + NI))}
+                         4.0 * (OI + N * OI + NI + L * N * N), FP32_FLOPS),
+                     u: (4.0 * N * OI + 2.0 * OI, 4.0 * (2 * OI + N * OI + NI + L * N),
+                         FP32_FLOPS),
+                     v: (5.0 * N * OI, 4.0 * (OI + 2 * N * OI + NI), FP32_FLOPS)}
         fns = {g: (lambda: getattr(kern, g)(W, V, proj), lambda: plain[g](W, V, proj)),
                u: (lambda: getattr(kern, u)(W, V, proj, alpha, eta),
                    lambda: plain[u](W, V, proj, alpha, eta)),
@@ -630,6 +681,12 @@ def phase_stacked_kernels(torch, kern, ref):
                    lambda: plain[v](Wn, V, proj, frac))}
         reps = 3 if names is STACKED else 10     # B10 at w_gate: ~0.1 s a call
         time_cases(torch, label, {n: fns[n] + costs[n] for n in names}, timings, reps)
+        if names is STACKED:    # no one call computes Eq. 11: time the product alone
+            D = (Wn[None] - V).reshape(N * L, out_d, in_d)
+            Pf = P.reshape(N * L, in_d, in_d)
+            print(f"[kernels] {label} {v}: the product alone, torch.bmm(D, P) (TF32 off), "
+                  f"{graph_ms(torch, lambda: torch.bmm(D, Pf), reps):.4f} ms")
+            del D, Pf
         del W, V, P, p, Wn
     return err, timings
 
@@ -771,7 +828,7 @@ def phase_many_clients(torch, kern, ref, timings):
                 "maecho_gram_left": (gram_left_flops(N, out_d, in_d, k),
                                      4.0 * (N * out_d * k + N * k * in_d + N * N)),
                 "maecho_gram_diag": (2.0 * N * OI + N * (N + 1) * OI,
-                                     4.0 * (OI + N * OI + NI + N * N))}
+                                     4.0 * (OI + N * OI + NI + N * N), FP32_FLOPS)}
         for name in GRAMS:
             fn, plain = getattr(kern, name), getattr(ref, name + "_ref")
             a = args[name]
@@ -789,10 +846,11 @@ def phase_many_clients(torch, kern, ref, timings):
             del G64
             check(torch.equal(G, fn(*a)), f"{name} is not reproducible at N={N}")
             err[name] = max(err[name], e)
-            fl, nb = cost[name.replace("_stacked", "")]
+            fl, nb, *rate = cost[name.replace("_stacked", "")]
             if name.endswith("_stacked"):               # each layer's work, L times
                 fl, nb = L * fl, L * nb
-            time_cases(torch, f"N{N}", {name: (lambda: fn(*a), lambda: plain(*a), fl, nb)},
+            time_cases(torch, f"N{N}", {name: (lambda: fn(*a), lambda: plain(*a), fl, nb,
+                                               *rate)},
                        timings, 3 if N > 4 else 20)
         del W, V, P, Uf, A, UT, p, one, args
     ws = build.load("maecho_gram_stacked", maecho_gram._STACKED_SIGS)
@@ -1270,6 +1328,11 @@ def phase_serve_kernels(torch, kern, ref):
               f"decode_attention is not reproducible at {tag}")
         if tag == "main bf16 fill 576":
             err["decode_attention"] = e
+    q, kc, vc, mask = dec["main bf16 fill 576"]
+    names = kernel_names(torch, lambda: kern.decode_attention(q, kc, vc, mask))
+    print(f"[kernels] serve decode_attention: kernels a call {names}")
+    check(len(names) == 1 and "decode_attention" in names[0],
+          f"decode_attention launched {names} in one call, expected its one kernel")
 
     # timing at the main path's shapes and dtype (bf16); least work and bytes:
     # B21 the unmasked causal half of q.k^T and p.v; B22 the valid slots only;
@@ -1288,8 +1351,9 @@ def phase_serve_kernels(torch, kern, ref):
     print(f"[kernels] serve flash_attention: all flops at the fp32 SIMT rate "
           f"{flops / FP32_FLOPS * 1e3:.4f} ms; library scaled_dot_product_attention(is_causal, "
           f"enable_gqa) {library[('flash_attention', 'serve')]:.4f} ms")
-    # fp32 operands (the exactness paths) run B21's SIMT body: bound at the
-    # fp32 rate (TF32 is not exact), 4-byte operands
+    # fp32 operands (the exactness paths) run B21's SIMT body: bound at
+    # FP32_TOL_FLOPS (3xTF32 meets the fp32 tolerance; plain TF32 does not),
+    # 4-byte operands
     q, k, v = flash["main f32"]
     time_cases(torch, "serve f32", {"flash_attention": (
         lambda: kern.flash_attention(q, k, v), lambda: ref.flash_attention_ref(q, k, v),
@@ -1354,8 +1418,10 @@ def profile_decode(torch, cfg, params, prompts, steps: int = 8) -> dict:
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    b22 = [us for n, us in by_name.items() if "decode_attention" in n]
     return {"steps": steps, "wall_ms": wall_us / 1e3, "busy_ms": busy_us / 1e3,
-            "n_kernels": len(kernels), "top": [(n[:60], us / 1e3) for n, us in top]}
+            "n_kernels": len(kernels), "top": [(n[:60], us / 1e3) for n, us in top],
+            "b22_ms": sum(b22) / 1e3, "b22_names": len(b22)}
 
 
 def phase_serve(torch, kern, lm):
@@ -1431,6 +1497,10 @@ def check_serve(r: dict) -> None:
           f"({100 * pr['busy_ms'] / pr['wall_ms']:.2f} %, {pr['n_kernels']} kernel launches, "
           f"{pr['n_kernels'] / pr['steps']:.0f} a step); most device time: "
           + "; ".join(f"{n} {ms:.3f} ms" for n, ms in pr["top"]))
+    print(f"[profile] serve decode: B22 (decode_attention) {pr['b22_ms']:.3f} ms of the window's "
+          f"{pr['busy_ms']:.3f} ms device time ({100 * pr['b22_ms'] / pr['busy_ms']:.2f} %), "
+          f"{100 * pr['b22_ms'] / pr['wall_ms']:.2f} % of its wall")
+    check(pr["b22_names"] == 1, "the decode window ran B22 under more than one kernel name")
     print(f"[memory] serve: allocated before {r['before_gb']:.3f} GB, {r['before_gc_gb']:.3f} GB "
           f"after gc.collect(), peak in the fixed batch {r['peak_gb']:.3f} GB")
     print(f"[launches] serve fixed batch: {r['launches']}")
@@ -1898,6 +1968,7 @@ def main() -> None:
         for line in log.splitlines():
             if "Used" in line or "spill" in line:
                 print(f"[ptxas] {name}: {line.strip()}")
+    check_tf32_sass(build)
 
     t0 = time.perf_counter()
     err, timings = phase_kernels(torch, kern, ref)

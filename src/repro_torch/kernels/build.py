@@ -41,16 +41,18 @@ SOURCES = ("maecho_gram", "maecho_update", "maecho_v_update",
 _libs: dict[str, ctypes.CDLL] = {}
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
+def cuda_tool(name: str = "nvcc") -> str:
+    """Path of a CUDA toolkit program (``nvcc``, ``cuobjdump``): PATH,
+    then ``$CUDA_HOME/bin``, then ``/usr/local/cuda/bin``."""
+    found = shutil.which(name)
     if found:
         return found
     home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    cand = pathlib.Path(home) / "bin" / "nvcc"
+    cand = pathlib.Path(home) / "bin" / name
     if cand.exists():
         return str(cand)
-    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, "
-                       "/usr/local/cuda/bin): cannot build the CUDA kernels")
+    raise RuntimeError(f"{name} not found (PATH, $CUDA_HOME/bin, "
+                       f"/usr/local/cuda/bin): cannot build or read the CUDA kernels")
 
 
 def _paths(name: str) -> tuple[pathlib.Path, pathlib.Path]:
@@ -60,6 +62,12 @@ def _paths(name: str) -> tuple[pathlib.Path, pathlib.Path]:
         h.update(header.read_bytes())
     digest = h.hexdigest()[:16]
     return src, BUILD_DIR / f"{name}-{digest}.so"
+
+
+def library_path(name: str) -> pathlib.Path:
+    """Where the library of ``csrc/<name>.cu`` is built (named by the
+    content hash of its source, the headers and the flags)."""
+    return _paths(name)[1]
 
 
 def _start(name: str):
@@ -75,7 +83,7 @@ def _start(name: str):
         return None, lock, so, log
     tmp = so.with_suffix(f".tmp{os.getpid()}.so")
     proc = subprocess.Popen(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+        [cuda_tool(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     return (proc, tmp), lock, so, log
 

@@ -4,12 +4,14 @@
 
 q (B, 1, Hq, D) against caches (B, W, Hkv, D) under a boolean validity
 mask (B, W), float32 or bfloat16, fp32 math, the output in q's dtype; a
-row with no valid slot returns zeros, as the reference kernel does.  The
-kernel splits the window into 128-slot blocks (blocks with no valid slot
-are skipped) and combines the blocks' partial softmax states in a second
-launch, in a fixed order.  Caches and mask are read through their
-strides, so a view cropped along W (the serving loop's ``w_live``) is
-read in place, with no copy; any W is taken.
+row with no valid slot returns zeros, as the reference kernel does.  One
+launch: a thread block cluster per (batch row, kv head) whose CTAs cut
+the window into contiguous runs (:func:`window_split`), each walking its
+run with an online softmax (sub-blocks with no valid slot are skipped),
+then combine their softmax states through distributed shared memory in
+rank order.  No workspace, no second launch.  Caches and mask are read
+through their strides, so a view cropped along W (the serving loop's
+``w_live``) is read in place, with no copy; any W is taken.
 
 On a CUDA tensor :func:`decode_attention` launches the kernel (or
 raises); on a CPU tensor it runs the plain version in ``ref``.
@@ -23,10 +25,25 @@ import torch
 from repro_torch.kernels import build, ref
 
 _SIGS = {
-    "decode_attention_workspace_floats": (ctypes.c_longlong, [ctypes.c_int] * 5),
-    "decode_attention_launch": (ctypes.c_int, [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+    "decode_attention_launch": (ctypes.c_int, [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
                                 + [ctypes.c_longlong] * 9 + [ctypes.c_void_p]),
 }
+
+MAX_CLUSTER = 8      # the portable cluster size
+RUN_SLOTS = 64       # slots a CTA aims for before the cluster grows
+
+
+def window_split(W: int) -> tuple[int, int]:
+    """(CTAs a cluster, slots a CTA) for a window of W slots: CTA rank r
+    owns the slots [r · run, (r + 1) · run)."""
+    ctas = max(1, min(MAX_CLUSTER, -(-W // RUN_SLOTS)))
+    return ctas, -(-W // ctas)
+
+
+def sub_block(D: int, itemsize: int) -> int:
+    """Slots a CTA stages at once: 128, or 64 where a row of D zero-filled
+    to 64 or 128 takes more than 256 bytes (fp32 at D > 64)."""
+    return 128 if (64 if D <= 64 else 128) * itemsize <= 256 else 64
 
 
 def decode_attention(q, k_cache, v_cache, valid_mask):
@@ -56,12 +73,11 @@ def decode_attention(q, k_cache, v_cache, valid_mask):
                   f"{tuple(valid_mask.shape)} on {valid_mask.device}, strides "
                   f"{valid_mask.stride()}")
     lib = build.load("decode_attention", _SIGS)
-    ws = torch.empty(lib.decode_attention_workspace_floats(B, W, Hq, Hkv, D),
-                     dtype=torch.float32, device=q.device)
     out = torch.empty((B, 1, Hq, D), dtype=q.dtype, device=q.device)
+    ctas, run = window_split(W)
     err = lib.decode_attention_launch(
         build.ptr(q), build.ptr(k_cache), build.ptr(v_cache), build.ptr(valid_mask),
-        build.ptr(ws), build.ptr(out), B, W, Hq, Hkv, D, dtype, q.stride(0), q.stride(2),
+        build.ptr(out), B, W, Hq, Hkv, D, ctas, run, dtype, q.stride(0), q.stride(2),
         *k_cache.stride()[:3], *v_cache.stride()[:3], valid_mask.stride(0), build.stream())
     build.check(err, "decode_attention")
     decode_attention.launches += 1

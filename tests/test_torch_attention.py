@@ -22,7 +22,7 @@ import strategies as strat
 from repro.kernels import ops as jops
 from repro.models import layers as jL
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.kernels.decode_attention import decode_attention, sub_block, window_split
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models import layers as tL
 
@@ -198,6 +198,81 @@ def test_decode_attention_matches_reference_kernel(shape, fill):
         atol=1e-4, rtol=1e-4)
     _close(tL.decode_attention(*t, backend="kernel", w_live=w_live), want, 1e-4)
     _close(tL.decode_attention_oracle(*t), jL.decode_attention_oracle(q, kc, vc, valid), 1e-4)
+
+
+def _emulated_decode_cluster(q, kc, vc, valid):
+    """B22's split in torch on the CPU (fp32 inputs): the window cut into
+    the cluster's CTA runs (``window_split``), each run walked in
+    sub-blocks (``sub_block``) with an online softmax, a sub-block with no
+    valid slot in a batch row skipped for that row, then the runs' (m, l,
+    acc) combined in rank order, the sum clamped at 1e-30."""
+    B, _, Hq, D = q.shape
+    W, Hkv = kc.shape[1], kc.shape[2]
+    qg = q.reshape(B, Hkv, Hq // Hkv, D)
+    ctas, run = window_split(W)
+    sub = sub_block(D, q.element_size())
+    states = []
+    for r in range(ctas):
+        m = torch.full((B, Hkv, Hq // Hkv, 1), -1e30)
+        l = torch.zeros_like(m)
+        acc = torch.zeros(B, Hkv, Hq // Hkv, D)
+        for w0 in range(r * run, min(W, (r + 1) * run), sub):
+            w1 = min(w0 + sub, (r + 1) * run, W)
+            ok = valid[:, None, None, w0:w1]
+            s = torch.einsum("bhgd,bwhd->bhgw", qg, kc[:, w0:w1]) * (1.0 / D ** 0.5)
+            s = torch.where(ok, s, -1e30)
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            p = torch.where(ok, torch.exp(s - m_new), 0.0)
+            corr = torch.exp(m - m_new)
+            live = ok.any(-1, keepdim=True)
+            l = torch.where(live, l * corr + p.sum(-1, keepdim=True), l)
+            acc = torch.where(live, acc * corr + torch.einsum("bhgw,bwhd->bhgd", p, vc[:, w0:w1]),
+                              acc)
+            m = torch.where(live, m_new, m)
+        states.append((m, l, acc))
+    M = torch.stack([m for m, _, _ in states]).amax(0)
+    L = torch.zeros_like(M)
+    A = torch.zeros(B, Hkv, Hq // Hkv, D)
+    for m, l, acc in states:
+        c = torch.exp(m - M)
+        L = L + l * c
+        A = A + acc * c
+    return (A / L.clamp_min(1e-30)).reshape(B, 1, Hq, D)
+
+
+def test_window_split_covers_the_window():
+    """At most 8 CTAs a cluster, runs of about 64 slots, every slot owned
+    by exactly one CTA; at the serving window (640) eight runs of 80."""
+    assert window_split(640) == (8, 80)
+    assert window_split(4096) == (8, 512)
+    for W in (1, 5, 64, 65, 128, 200, 256, 511, 640, 1000, 4096):
+        ctas, run = window_split(W)
+        assert 1 <= ctas <= 8 and (ctas - 1) * run < W <= ctas * run
+    assert (sub_block(64, 2), sub_block(128, 2), sub_block(64, 4), sub_block(96, 4)) == (
+        128, 128, 128, 64)
+
+
+@pytest.mark.parametrize("fill", FILLS)
+@pytest.mark.parametrize("shape", strat.DECODE_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_cluster_split_matches_reference_kernel(shape, fill):
+    """The emulated cluster split of B22 against the reference's
+    decode_attention (interpret mode) at 2e-5, wrapped fills included."""
+    q, kc, vc, valid, _ = _decode_case(fill + sum(shape) + 1, shape, fill)
+    want = np.asarray(jops.decode_attention(q, kc, vc, valid, bw=128))
+    _close(_emulated_decode_cluster(*(torch.from_numpy(x) for x in (q, kc, vc, valid))),
+           want, 2e-5)
+
+
+def test_cluster_split_zeros_an_empty_row():
+    """A row with no valid slot: every run's state stays empty and the
+    combine gives zeros, as the reference kernel; the other row agrees
+    with it at 2e-5."""
+    q, kc, vc, _, _ = _decode_case(4, (2, 640, 14, 2, 64), 640)
+    valid = np.zeros((2, 640), bool)
+    valid[1, 70:600] = True
+    got = _emulated_decode_cluster(*(torch.from_numpy(x) for x in (q, kc, vc, valid)))
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+    _close(got, jops.decode_attention(q, kc, vc, valid, bw=128), 2e-5)
 
 
 def test_w_live_crop_is_a_view():

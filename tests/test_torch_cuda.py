@@ -281,6 +281,58 @@ def test_stacked_kernels_match_plain(card, shape):
                                    P[:, l].contiguous()))
 
 
+def _kernel_names(fn):
+    """Names of the CUDA kernels ``fn()`` launches, from torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def _v_update_f64(W, V, P, frac, norm, eps=1e-12):
+    """Eq. 11 in float64: the witness both fp32 versions are held to."""
+    d = (W[None] - V).double()
+    u = d - frac * (d @ P.double())
+    if norm:
+        u = u / torch.linalg.vector_norm(u, dim=-1, keepdim=True).clamp_min(eps)
+    return V.double() + u
+
+
+# (L, out, in, N): ragged out/in/depth (in % 4 != 0 takes the 4-byte
+# copies), a multi-tile ragged leaf, 64 x 96, and Qwen2-0.5B's wq
+@pytest.mark.parametrize("norm", (False, True))
+@pytest.mark.parametrize("shape", ((3, 33, 65, 1), (3, 200, 300, 5), (2, 64, 96, 3),
+                                   (24, 896, 896, 2)), ids=lambda s: "x".join(map(str, s)))
+def test_v_update_stacked_3xtf32(card, shape, norm):
+    """B16 on the tensor cores (3xTF32): one launch of its tf32 kernel
+    (plus the norm pass), bitwise reproducible, and on inputs scaled
+    x1e3 within 4x the plain fp32 version's error against float64, plus
+    1e-7 max|V'| (the output's own rounding)."""
+    L, out_d, in_d, N = shape
+    W, V, P, _, _ = _stacked_inputs(card, *shape)
+    W, V = W * 1e3, V * 1e3
+    frac = 20.0 / 21.0
+    before = maecho_v_update_stacked.launches
+    got = maecho_v_update_stacked(W, V, P, frac, norm)
+    assert maecho_v_update_stacked.launches - before == 1
+    assert torch.equal(got, maecho_v_update_stacked(W, V, P, frac, norm))
+    want = _v_update_f64(W, V, P, frac, norm)
+    err = (got.double() - want).abs().max().item()
+    err_plain = (ref.maecho_v_update_stacked_ref(W, V, P, frac, norm).double()
+                 - want).abs().max().item()
+    assert err <= 4 * err_plain + 1e-7 * want.abs().max().item(), (err, err_plain)
+    names = _kernel_names(lambda: maecho_v_update_stacked(W, V, P, frac, norm))
+    assert sum("v_update_tf32_kernel" in n for n in names) == 1, names
+    assert sum("v_norm_kernel" in n for n in names) == norm, names
+    assert all(any(k in n for k in ("v_update_tf32_kernel", "p_split_kernel", "v_norm_kernel"))
+               for n in names), names
+
+
 def test_stacked_wrappers_reject_bad_operands(card):
     W = torch.zeros(2, 8, 8, device="cuda")
     V = torch.zeros(3, 2, 8, 8, device="cuda")
@@ -608,11 +660,15 @@ def _decode_inputs(card, B, W, Hkv, group, D, fill, dtype):
 @pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16), ids=("f32", "bf16"))
 @pytest.mark.parametrize("case", ((8, 640, 2, 7, 64, 576), (8, 640, 2, 7, 64, 700),
                                   (2, 200, 2, 4, 64, 150), (3, 256, 1, 16, 128, 30),
-                                  (1, 128, 4, 1, 32, 128)),
+                                  (1, 128, 4, 1, 32, 128), (8, 4096, 2, 7, 64, 4000),
+                                  (2, 512, 1, 64, 64, 300), (2, 300, 1, 64, 128, 250),
+                                  (2, 4096, 2, 7, 128, 5000), (3, 5, 2, 3, 40, 4)),
                          ids=lambda c: "x".join(map(str, c)))
 def test_decode_attention_matches_plain(card, case, dtype):
     """B22 against its plain version: Qwen2-0.5B's serving shape filled to
-    576 and wrapped, a ragged W, MQA with a group of 16, MHA; row 0 with
+    576 and wrapped, a ragged W, MQA with a group of 16, MHA, W = 4096
+    (more sub-blocks than a cluster has CTAs), groups of 64 (at D = 128
+    the largest shared-memory footprint), a window of 5 slots; row 0 with
     no valid slot gives zeros; one launch per call."""
     B, W, Hkv, group, D, fill = case
     q, kc, vc, valid = _decode_inputs(card, B, W, Hkv, group, D, fill, dtype)
@@ -625,6 +681,67 @@ def test_decode_attention_matches_plain(card, case, dtype):
     torch.testing.assert_close(got.float(), ref.decode_attention_ref(q, kc, vc, valid).float(),
                                atol=tol, rtol=tol)
     torch.testing.assert_close(decode_attention(q, kc, vc, valid), got, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16), ids=("f32", "bf16"))
+def test_decode_attention_per_row_fills(card, dtype):
+    """Each batch row at its own position, as continuous batching makes
+    them (slots admitted at different steps, one wrapped, one empty):
+    B22 against its plain version, bitwise reproducible."""
+    B, W, Hkv, group, D = 8, 640, 2, 7, 64
+    q, kc, vc, _ = _decode_inputs(card, B, W, Hkv, group, D, 1, dtype)
+    pos = torch.tensor([0, 3, 63, 64, 200, 575, 700, -1], device="cuda")[:, None]
+    idx = torch.arange(W, device="cuda")[None]
+    last = pos - torch.remainder(pos - idx, W)
+    valid = (last >= 0) & (last > pos - W)
+    got = decode_attention(q, kc, vc, valid)
+    assert bool((got[7] == 0).all())
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), ref.decode_attention_ref(q, kc, vc, valid).float(),
+                               atol=tol, rtol=tol)
+    assert torch.equal(got, decode_attention(q, kc, vc, valid))
+
+
+_ONE_KERNEL = """
+import json, torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+from repro_torch.kernels.decode_attention import decode_attention
+g = torch.Generator(device="cuda").manual_seed(0)
+q = torch.randn(8, 1, 14, 64, device="cuda", generator=g).bfloat16()
+kc, vc = (torch.randn(8, 640, 2, 64, device="cuda", generator=g).bfloat16() for _ in range(2))
+valid = (torch.arange(640, device="cuda") < 576).expand(8, 640)
+decode_attention(q, kc, vc, valid)
+torch.cuda.synchronize()
+with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    decode_attention(q, kc, vc, valid)
+    torch.cuda.synchronize()
+print(json.dumps([e.name for e in prof.events() if e.device_type == DeviceType.CUDA]))
+"""
+
+
+def test_decode_attention_is_one_kernel(card):
+    """One call is one kernel launch (no combine kernel) and allocates
+    only its output (no workspace).  The launch count is read by
+    torch.profiler in a process of its own: late in this file's run the
+    profiler reported no device events at all (calls 20i-20k, PERF.md
+    §6), while the same check passed alone and in chip_smoke.py."""
+    import json
+    import subprocess
+    import sys
+
+    run = subprocess.run([sys.executable, "-c", _ONE_KERNEL], capture_output=True,
+                         text=True, timeout=600)
+    assert run.returncode == 0, run.stderr
+    names = json.loads(run.stdout.strip().splitlines()[-1])
+    assert len(names) == 1 and "decode_attention_kernel" in names[0], names
+    q, kc, vc, valid = _decode_inputs(card, 8, 640, 2, 7, 64, 576, torch.bfloat16)
+    decode_attention(q, kc, vc, valid)
+    torch.cuda.synchronize()
+    n0 = torch.cuda.memory_stats()["allocation.all.allocated"]
+    out = decode_attention(q, kc, vc, valid)
+    assert torch.cuda.memory_stats()["allocation.all.allocated"] - n0 == 1
+    assert out.shape == (8, 1, 14, 64)
 
 
 def test_decode_attention_reads_a_w_live_view(card):

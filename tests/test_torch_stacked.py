@@ -16,6 +16,9 @@ import dataclasses
 import jax
 import numpy as np
 import pytest
+import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 import strategies as strat
 from repro.core import maecho as jm
@@ -141,6 +144,73 @@ def _check_factored_stacked(W, V, P, a, Wt, Vt, Pt, at, frac, norm):
     B = tmg.compressed_residual(Wn, Vt, Ut, st)
     for v_fn in (ref.maecho_v_update_left_stacked_ref, tmv.maecho_v_update_left_stacked):
         _close(v_fn(B, UTt, Wn, Vt, frac, norm), want_v, **APPLY_TOL)
+
+
+def _tf32_rna(x):
+    """fp32 x rounded to tf32 as ``cvt.rna.tf32.f32`` does: to nearest
+    with ties away from zero, on 10 explicit significand bits; the low
+    13 bits of the result are zero."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _split_tf32(x):
+    """B16's split of fp32 x into two tf32 terms: hi = tf32_rna(x),
+    lo = tf32_rna(x - hi)."""
+    hi = _tf32_rna(x)
+    return hi, _tf32_rna(x - hi)
+
+
+@given(st.integers(-100, 100), st.integers(0, 2 ** 23 - 1), st.booleans())
+@settings(max_examples=200, deadline=None)
+def test_tf32_split_is_within_2_pow_minus_22(exponent, mantissa, negative):
+    """Any fp32 x of magnitude 2^-100 .. 2^101 is hi + lo to 2^-22·|x|,
+    hi and lo each a tf32 value (low 13 bits zero, hi the nearest tf32
+    to x): the error bound of the three products B16 keeps."""
+    x = np.ldexp(1.0 + mantissa / 2.0 ** 23, exponent) * (-1.0 if negative else 1.0)
+    xt = torch.tensor([x, 1.0, -3.0, 2.0 ** -100], dtype=torch.float32)
+    hi, lo = _split_tf32(xt)
+    for t in (hi, lo):
+        assert torch.equal(t.view(torch.int32) & 0x1FFF, torch.zeros_like(t, dtype=torch.int32))
+    err = (xt.double() - hi.double() - lo.double()).abs()
+    assert bool((err <= 2.0 ** -22 * xt.double().abs()).all())
+    assert bool(((xt.double() - hi.double()).abs() <= 2.0 ** -11 * xt.double().abs()).all())
+
+
+def _emulated_v_update_3xtf32(W, V, P, frac, norm, eps=1e-12):
+    """B16's scheme in torch on the CPU: D = W' - V in fp32, D and P split
+    into tf32 hi and lo, the product D·P in k-steps of 8 as hi·hi + hi·lo
+    + lo·hi, each summed into one fp32 accumulator in that order; then
+    u = D - frac·acc, the row norm, V + u."""
+    d = W[None] - V
+    dh, dl = _split_tf32(d)
+    ph, pl = _split_tf32(P)
+    acc = torch.zeros_like(d)
+    for k0 in range(0, P.shape[-1], 8):
+        k = slice(k0, k0 + 8)
+        acc = acc + dh[..., k] @ ph[..., k, :]
+        acc = acc + dh[..., k] @ pl[..., k, :]
+        acc = acc + dl[..., k] @ ph[..., k, :]
+    u = d - frac * acc
+    if norm:
+        u = u / torch.linalg.vector_norm(u, dim=-1, keepdim=True).clamp_min(eps)
+    return V + u
+
+
+@pytest.mark.parametrize("norm", (False, True))
+@pytest.mark.parametrize("shape", ((2, 3, 128, 256), (2, 2, 33, 65), (1, 2, 200, 300),
+                                   (3, 1, 64, 96)), ids=lambda s: "x".join(map(str, s)))
+def test_3xtf32_scheme_matches_reference_kernel(shape, norm):
+    """The emulated 3xTF32 scheme of B16 against the reference's
+    ``maecho_v_update_stacked`` in interpret mode (one block a leaf, so
+    ragged leaves need no padding) at the fp32 tolerance 1e-4, norm on
+    and off."""
+    L, n, out_d, in_d = shape
+    W, V, P, _ = _stacked_leaf(31 + out_d + norm, n, L, out_d, in_d, "full")
+    frac = 20.0 / 21.0
+    want = jmv.maecho_v_update_stacked(W, V, P, frac=frac, norm=norm, bo=out_d, bi=in_d,
+                                       bk=in_d)
+    got = _emulated_v_update_3xtf32(*to_port((W, V, P)), frac, norm)
+    _close(got, want, **APPLY_TOL)
 
 
 @pytest.mark.parametrize("lead", ((), (3,), (2, 2)), ids=("levels0", "levels1", "levels2"))

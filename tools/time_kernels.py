@@ -1,0 +1,174 @@
+"""Time chosen hand-written kernels of one checkout of the port on one
+GPU, beside their plain versions and, where one exists, the PyTorch call
+that computes the same function; to compare two checkouts in one call,
+run it once per checkout, in turns (parent, change, change, parent),
+each in its own process.
+
+    python3 tools/time_kernels.py --kernels B16,B22 [--src path/to/src] [--label name]
+
+Kernels (ids of PERF.md §6) and the shapes of the main paths they run at:
+B10/B13/B16 at Qwen2-0.5B's wq (24 x 896 x 896) and w_gate
+(24 x 4864 x 896), N = 2, dense rank-in/2 projectors (B16 beside
+``torch.bmm(D, P)``, the product alone, TF32 off); B19 at the chunk
+shapes (ca, cb, D) beside ``torch.mm(Ra, Rb.T)``; B21 at the serving
+prefill (8, 512, 14/2 heads of 64), causal, bf16 and fp32, and B22 at
+the serving decode (8, W = 640, 2 kv heads, group 7, 64) filled to 576
+and at W = 4096 filled to 4000, bf16, both beside
+``scaled_dot_product_attention``.  Device times from CUDA-graph replays;
+the kernels are built from ``--src`` first.  Prints one JSON line, with
+the card's name and power limit.
+"""
+import argparse
+import json
+import pathlib
+import subprocess
+import sys
+
+
+def graph_ms(torch, fn, reps: int) -> float:
+    """Device time of one ``fn()``: ``reps`` calls captured into one CUDA
+    graph, replayed between two events."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def stacked_cases(torch, gen, which):
+    """B10 / B13 / B16 at wq and w_gate: (name, kernel fn, plain fn,
+    library fn or None, reps)."""
+    from repro_torch.kernels import maecho_gram, maecho_update, maecho_v_update, ref
+
+    for label, L, out_d, in_d, N in (("wq", 24, 896, 896, 2), ("w_gate", 24, 4864, 896, 2)):
+        W = torch.randn(L, out_d, in_d, device="cuda", generator=gen) * 0.1
+        V = W + torch.randn(N, L, out_d, in_d, device="cuda", generator=gen) * 0.05
+        U = torch.linalg.qr(torch.randn(N, L, in_d, in_d // 2, device="cuda", generator=gen))[0]
+        P = (U @ U.transpose(-1, -2)).contiguous()
+        del U
+        a = torch.softmax(torch.randn(L, N, device="cuda", generator=gen), -1).contiguous()
+        tag = f"{label} (L={L}, {out_d}x{in_d}, N={N})"
+        if which == "B10":
+            yield (tag, lambda: maecho_gram.maecho_gram_stacked(W, V, P),
+                   lambda: ref.maecho_gram_stacked_ref(W, V, P), None, 3)
+        elif which == "B13":
+            yield (tag, lambda: maecho_update.maecho_update_stacked(W, V, P, a, 0.5),
+                   lambda: ref.maecho_update_stacked_ref(W, V, P, a, 0.5), None, 3)
+        else:
+            D = (W[None] - V).reshape(N * L, out_d, in_d)
+            Pf = P.reshape(N * L, in_d, in_d)
+            yield (tag, lambda: maecho_v_update.maecho_v_update_stacked(W, V, P, 20 / 21),
+                   lambda: ref.maecho_v_update_stacked_ref(W, V, P, 20 / 21),
+                   lambda: torch.bmm(D, Pf), 3)
+        del W, V, P
+
+
+def cross_cases(torch, gen):
+    from repro_torch.kernels import maecho_gram, ref
+
+    for ca, cb, D in ((1, 1, 896 * 151936), (1, 64, 313600), (64, 64, 313600),
+                      (16, 16, 313600), (37, 64, 60001)):
+        Ra = torch.randn(ca, D, device="cuda", generator=gen)
+        Rb = torch.randn(cb, D, device="cuda", generator=gen)
+        yield (f"({ca}, {cb}, {D})", lambda: maecho_gram.maecho_gram_cross(Ra, Rb),
+               lambda: ref.maecho_gram_cross_ref(Ra, Rb), lambda: torch.mm(Ra, Rb.T),
+               3 if D > 10 ** 6 else 20)
+
+
+def flash_cases(torch, gen):
+    from repro_torch.kernels import flash_attention, ref
+
+    F = torch.nn.functional
+    for dt in (torch.bfloat16, torch.float32):
+        q, k, v = (torch.randn(8, 512, h, 64, device="cuda", generator=gen).to(dt)
+                   for h in (14, 2, 2))
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        yield (f"(8, 512, 14/2, 64) causal {dt}",
+               lambda: flash_attention.flash_attention(q, k, v),
+               lambda: ref.flash_attention_ref(q, k, v),
+               lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                      enable_gqa=True), 20)
+
+
+def decode_cases(torch, gen):
+    from repro_torch.kernels import decode_attention, ref
+
+    F = torch.nn.functional
+    for W, fill in ((640, 576), (4096, 4000)):
+        q = torch.randn(8, 1, 14, 64, device="cuda", generator=gen).bfloat16()
+        kc, vc = (torch.randn(8, W, 2, 64, device="cuda", generator=gen).bfloat16()
+                  for _ in range(2))
+        idx = torch.arange(W, device="cuda")
+        last = (fill - 1) - torch.remainder(fill - 1 - idx, W)
+        mask = ((last >= 0) & (last > fill - 1 - W)).expand(8, W)
+        qt, kt, vt = q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2)
+        am = mask[:, None, None, :]
+        yield (f"(8, {W}, 2, group 7, 64) fill {fill} bf16",
+               lambda: decode_attention.decode_attention(q, kc, vc, mask),
+               lambda: ref.decode_attention_ref(q, kc, vc, mask),
+               lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=am,
+                                                      enable_gqa=True), 50)
+
+
+CASES = {"B10": ("maecho_gram_stacked", lambda t, g: stacked_cases(t, g, "B10")),
+         "B13": ("maecho_update_stacked", lambda t, g: stacked_cases(t, g, "B13")),
+         "B16": ("maecho_v_update_stacked", lambda t, g: stacked_cases(t, g, "B16")),
+         "B19": ("maecho_gram_cross", cross_cases),
+         "B21": ("flash_attention", flash_cases),
+         "B22": ("decode_attention", decode_cases)}
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--kernels", default="B16,B22",
+                    help="comma-separated ids, of " + ",".join(CASES))
+    ap.add_argument("--src", default="src", help="the checkout's src directory")
+    ap.add_argument("--label", default="")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+    ids = [k.strip() for k in args.kernels.split(",") if k.strip()]
+    unknown = [k for k in ids if k not in CASES]
+    if unknown:
+        sys.exit(f"time_kernels: unknown kernel ids {unknown}, know {sorted(CASES)}")
+    sys.path.insert(0, str(pathlib.Path(args.src).resolve()))
+    import torch
+
+    from repro_torch.kernels import build
+
+    if not torch.cuda.is_available():
+        sys.exit("time_kernels: needs a GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    build.build_all(tuple(dict.fromkeys(CASES[k][0] for k in ids)))
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    rows = []
+    for kid in ids:
+        for tag, k_fn, p_fn, lib_fn, reps in CASES[kid][1](torch, gen):
+            got, want = k_fn(), p_fn()
+            err = (got.float() - want.float()).abs().max().item()
+            rows.append({"kernel": kid, "case": tag, "max_abs_err": err,
+                         "ms": graph_ms(torch, k_fn, reps),
+                         "plain_ms": graph_ms(torch, p_fn, reps),
+                         "library_ms": graph_ms(torch, lib_fn, reps) if lib_fn else None})
+            print(f"[time_kernels] {args.label} {kid} {tag}: {rows[-1]}", file=sys.stderr)
+            del got, want
+            torch.cuda.empty_cache()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip()
+    print(json.dumps({"label": args.label, "src": args.src, "device": smi, "rows": rows}))
+
+
+if __name__ == "__main__":
+    main()
