@@ -168,11 +168,12 @@ Added with serving (after phase 15, once the LLM silos are freed; phase
    request, step and top-2 logit gap, and that step's logits within
    1e-3).
 
-Added with B22 as one cluster launch and B16 on 3xTF32 ``wgmma``: right
-after the build, the SASS of B16's library (``cuobjdump -sass``) must hold
-TF32 ``HGMMA`` instructions; phase 6 holds B16 bitwise reproducible and
-prints ``torch.bmm(D, P)`` (TF32 off, the product alone) beside it at wq
-and w_gate; phase 16 checks that one B22 call is one kernel
+Added with B22 as one cluster launch and B16, then B10 and B13, on
+3xTF32 ``wgmma``: right after the build, the SASS of the libraries of
+B10, B13 and B16 (``cuobjdump -sass``) must hold TF32 ``HGMMA``
+instructions; phase 6 holds B10, B13 and B16 bitwise reproducible and
+prints ``torch.bmm(D, P)`` (TF32 off, the product alone) beside each of
+them at wq and w_gate; phase 16 checks that one B22 call is one kernel
 (``torch.profiler``) and prints B22's share of the ``[profile]`` decode
 window.  Every fp32 kernel bound by its products is bounded at a third of
 the TF32 rate (``FP32_TOL_FLOPS``: three TF32 products keep fp32
@@ -307,16 +308,17 @@ def graph_ms(torch, fn, reps: int) -> float:
 
 
 def check_tf32_sass(build) -> None:
-    """B16 runs 3xTF32 on the tensor cores: the SASS of its library must
-    hold TF32 HGMMA (wgmma) instructions."""
-    lib = build.library_path("maecho_v_update_stacked")
-    sass = subprocess.run([build.cuda_tool("cuobjdump"), "-sass", str(lib)], check=True,
-                          capture_output=True, text=True).stdout
-    hgmma = [line.split(";")[0].strip() for line in sass.splitlines()
-             if "HGMMA" in line and "TF32" in line]
-    print(f"[sass] maecho_v_update_stacked ({lib.name}): {len(hgmma)} TF32 HGMMA "
-          f"instructions; first: {hgmma[0] if hgmma else None}")
-    check(bool(hgmma), "maecho_v_update_stacked's SASS holds no TF32 HGMMA instruction")
+    """B10, B13 and B16 run 3xTF32 on the tensor cores: the SASS of each
+    one's library must hold TF32 HGMMA (wgmma) instructions."""
+    for name in STACKED:
+        lib = build.library_path(name)
+        sass = subprocess.run([build.cuda_tool("cuobjdump"), "-sass", str(lib)], check=True,
+                              capture_output=True, text=True).stdout
+        hgmma = [line.split(";")[0].strip() for line in sass.splitlines()
+                 if "HGMMA" in line and "TF32" in line]
+        print(f"[sass] {name} ({lib.name}): {len(hgmma)} TF32 HGMMA "
+              f"instructions; first: {hgmma[0] if hgmma else None}")
+        check(bool(hgmma), f"{name}'s SASS holds no TF32 HGMMA instruction")
 
 
 def kernel_names(torch, fn) -> list:
@@ -439,7 +441,16 @@ def phase_kernels(torch, kern, ref):
                                 4.0 * (OI + 2 * N * OI + N * II)),
         }
         time_cases(torch, label, cases, timings)
+        product_alone(torch, label, "B1/B4/B7", "torch.bmm(W - V, P)",
+                      lambda D=(W[None] - V): torch.bmm(D, P), 50)
     return err, timings
+
+
+def product_alone(torch, label: str, ids: str, call: str, fn, reps: int) -> None:
+    """Print the device time of the one PyTorch call that computes the
+    kernels' main product alone (TF32 off), their yardstick in PERF.md."""
+    print(f"[kernels] {label} {ids}: the product alone, {call} (TF32 off), "
+          f"{graph_ms(torch, fn, reps):.4f} ms")
 
 
 def factored_inputs(torch, kern, gen, out_d, in_d, k, N):
@@ -527,6 +538,8 @@ def phase_factored_kernels(torch, kern, ref):
                 4.0 * (OI + 2 * N * OI + N * KI + N * k)),
         }
         time_cases(torch, f"{label}k{k}", cases, timings)
+        product_alone(torch, f"{label}k{k}", "B2/B5/B8", "torch.bmm(A, UT)",
+                      lambda: torch.bmm(A, UT), 50)
     return err, timings
 
 
@@ -633,6 +646,9 @@ def phase_stacked_kernels(torch, kern, ref):
             e = (Wn - plain[u](W, V, proj, alpha, eta)).abs().max().item()
             print(f"[kernels] {tag} {u} max_abs_err {e:.3e} tol {APPLY_ATOL:.0e}")
             check(e <= APPLY_ATOL, f"{u} disagrees at {tag}")
+            if proj is P:               # B13 (3xTF32): bitwise reproducible too
+                check(torch.equal(Wn, getattr(kern, u)(W, V, proj, alpha, eta)),
+                      f"{u} is not reproducible at {tag}")
             err[u] = max(err[u], e)
             for norm in ((False, True) if label == "ragged" else (False,)):
                 Vn = getattr(kern, v)(Wn, V, proj, frac, norm)
@@ -681,12 +697,11 @@ def phase_stacked_kernels(torch, kern, ref):
                    lambda: plain[v](Wn, V, proj, frac))}
         reps = 3 if names is STACKED else 10     # B10 at w_gate: ~0.1 s a call
         time_cases(torch, label, {n: fns[n] + costs[n] for n in names}, timings, reps)
-        if names is STACKED:    # no one call computes Eq. 11: time the product alone
-            D = (Wn[None] - V).reshape(N * L, out_d, in_d)
-            Pf = P.reshape(N * L, in_d, in_d)
-            print(f"[kernels] {label} {v}: the product alone, torch.bmm(D, P) (TF32 off), "
-                  f"{graph_ms(torch, lambda: torch.bmm(D, Pf), reps):.4f} ms")
-            del D, Pf
+        if names is STACKED:    # no one call computes Eq. 6, 7 or 11: time the product alone
+            for name, Wd in ((g, W), (u, W), (v, Wn)):
+                product_alone(torch, label, name, "torch.bmm(D, P)",
+                              lambda D=(Wd[None] - V).reshape(N * L, out_d, in_d),
+                              Pf=P.reshape(N * L, in_d, in_d): torch.bmm(D, Pf), reps)
         del W, V, P, p, Wn
     return err, timings
 
@@ -767,6 +782,9 @@ def phase_stacked_left_kernels(torch, kern, ref):
                 4.0 * (OI + 2 * N * OI + N * KI + N * L * k)),
         }
         time_cases(torch, label, cases, timings, 10)
+        product_alone(torch, label, "B11/B14/B17", "torch.bmm(A, UT) over N·L",
+                      lambda Af=A.reshape(N * L, out_d, k), UTf=UT.reshape(N * L, k, in_d):
+                      torch.bmm(Af, UTf), 10)
         del W, V, U, A, UT, B, Wn
     return err, timings
 

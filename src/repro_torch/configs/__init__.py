@@ -2,14 +2,16 @@
 
 ``get_config(arch_id)`` returns the exact published config;
 ``get_smoke_config(arch_id)`` the reduced same-family variant the CPU
-tests use (2 layers, d_model <= 512).  Only the dense family's configs
-are ported; the other architectures raise ``NotImplementedError``
-naming ROADMAP item A9.
+tests use (2 layers, d_model <= 512).  Ported: the dense family's
+Qwen2-0.5B and the paper's MLP and CNN (``PaperModelSpec``s); the CVAE
+raises ``NotImplementedError`` naming ROADMAP item A5, the other
+architectures naming A9.
 """
 from __future__ import annotations
 
 import importlib
 
+from repro_torch.fl.models import PaperModelSpec
 from repro_torch.models.config import ModelConfig
 
 ARCH_IDS = [
@@ -19,7 +21,7 @@ ARCH_IDS = [
     # paper's own experiment configs
     "paper_mlp", "paper_cnn", "paper_cvae",
 ]
-PORTED = ("qwen2_0_5b",)
+PORTED = ("qwen2_0_5b", "paper_mlp", "paper_cnn")
 
 # public ids use dashes (CLI --arch); module names use underscores
 ALIASES = {a.replace("_", "-"): a for a in ARCH_IDS}
@@ -39,15 +41,16 @@ def _module(arch: str):
         raise ValueError(f"unknown architecture {arch!r}; known: "
                          + ", ".join(ARCH_IDS))
     if name not in PORTED:
+        item = "A5" if name == "paper_cvae" else "A9"
         raise NotImplementedError(
-            f"architecture {arch!r} is not ported yet (ROADMAP item A9); "
+            f"architecture {arch!r} is not ported yet (ROADMAP item {item}); "
             f"ported: " + ", ".join(PORTED))
     return importlib.import_module(f"repro_torch.configs.{name}")
 
 
-def get_config(arch: str) -> ModelConfig:
+def get_config(arch: str) -> ModelConfig | PaperModelSpec:
     return _module(arch).config()
 
 
-def get_smoke_config(arch: str) -> ModelConfig:
+def get_smoke_config(arch: str) -> ModelConfig | PaperModelSpec:
     return _module(arch).smoke_config()

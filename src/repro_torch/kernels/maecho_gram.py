@@ -20,6 +20,9 @@ pipeline).
 Every Gram kernel takes any number of clients N: up to 54 one CTA per
 tile parks them all, above that the client axis is cut into blocks of at
 most 27 and one CTA takes each pair of blocks (``csrc/maecho_tile.cuh``).
+B10 takes its own route up to 54 clients: residual tiles formed by
+3xTF32 ``wgmma`` (``csrc/maecho_tf32.cuh``, shared with B13 and B16) in a
+persistent grid that contracts them against a per-CTA scratch slab.
 
 On a CUDA tensor a wrapper launches its kernel (or raises); on a CPU
 tensor it runs the plain version in ``ref``.
@@ -157,8 +160,10 @@ def _gram_stacked_launch(name: str, sigs: dict, W, V, P, kind: str):
     N, L, out_d, in_d = build.stacked_dims(name, W, V, P, kind)
     build.require(L <= 65535, f"{name}: L={L} layers exceeds the grid's limit")
     lib = build.load(name, sigs)
-    ws = torch.empty(getattr(lib, f"{name}_workspace_floats")(N, L, out_d, in_d),
-                     dtype=torch.float32, device=W.device)
+    n_ws = getattr(lib, f"{name}_workspace_floats")(N, L, out_d, in_d)
+    if n_ws < 0:
+        raise RuntimeError(f"{name}: cannot read the device's multiprocessor count")
+    ws = torch.empty(n_ws, dtype=torch.float32, device=W.device)
     G = torch.empty((L, N, N), dtype=torch.float32, device=W.device)
     err = getattr(lib, f"{name}_launch")(build.ptr(W), build.ptr(V), build.ptr(P),
                                          build.ptr(ws), build.ptr(G), N, L, out_d,
@@ -172,7 +177,10 @@ def maecho_gram_stacked(W, V, P):
     ``repro/kernels/maecho_gram.py::maecho_gram_stacked``): the
     (L, N, N) per-layer Grams of Rₗᵢ = (Wₗ − Vᵢₗ)Pᵢₗ from W (L, out, in),
     V (N, L, out, in) and dense P (N, L, in, in) float32, one launch for
-    all L layers.  Any out/in and any N."""
+    all L layers.  Any out/in and any N: up to 54 clients the residual
+    products run as 3xTF32 on the tensor cores (the workspace then holds
+    the tile partials and one (N - 1)-tile scratch slab per SM), past 54
+    the SIMT client-blocked route."""
     if W.device.type == "cpu":
         return ref.maecho_gram_stacked_ref(W, V, P)
     G = _gram_stacked_launch("maecho_gram_stacked", _STACKED_SIGS, W, V, P, "full")

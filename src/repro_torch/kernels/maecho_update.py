@@ -151,7 +151,8 @@ def maecho_update_stacked(W, V, P, alpha, eta: float = 1.0):
     ``repro/kernels/maecho_update.py::maecho_update_stacked``): Eq. 7
     per layer, Wₗ' = Wₗ + η·(−Σᵢ 2αₗᵢ (Wₗ − Vᵢₗ)Pᵢₗ), for W (L, out, in),
     V (N, L, out, in), P (N, L, in, in), alpha (L, N) float32, one launch
-    for all layers.  alpha stays on the device (no host sync)."""
+    for all layers, its products as 3xTF32 on the tensor cores.  alpha
+    stays on the device (no host sync)."""
     if W.device.type == "cpu":
         return ref.maecho_update_stacked_ref(W, V, P, alpha, eta)
     out = _update_stacked_launch("maecho_update_stacked", W, V, P, alpha, eta, "full")

@@ -258,7 +258,7 @@ def _stacked_inputs(gen, L, out_d, in_d, N):
 def test_stacked_kernels_match_plain(card, shape):
     """B10/B13/B16 (dense) and B12/B15/B18 (diagonal) against their plain
     versions, both Grams bitwise reproducible, and B10's layer l equal
-    to B1 on that layer alone."""
+    to an L = 1 launch on that layer's slices."""
     W, V, P, p, a = _stacked_inputs(card, *shape)
     for (gram, update, v_update), (g_ref, u_ref, v_ref), Pk in (
             (STACKED_FULL, (ref.maecho_gram_stacked_ref, ref.maecho_update_stacked_ref,
@@ -277,8 +277,9 @@ def test_stacked_kernels_match_plain(card, shape):
                                        v_ref(Wn, V, Pk, 0.9, norm), atol=1e-4, rtol=0)
     l = shape[0] - 1
     assert torch.equal(maecho_gram_stacked(W, V, P)[l],
-                       maecho_gram(W[l].contiguous(), V[:, l].contiguous(),
-                                   P[:, l].contiguous()))
+                       maecho_gram_stacked(W[l:l + 1].contiguous(),
+                                           V[:, l:l + 1].contiguous(),
+                                           P[:, l:l + 1].contiguous())[0])
 
 
 def _kernel_names(fn):
@@ -331,6 +332,75 @@ def test_v_update_stacked_3xtf32(card, shape, norm):
     assert sum("v_norm_kernel" in n for n in names) == norm, names
     assert all(any(k in n for k in ("v_update_tf32_kernel", "p_split_kernel", "v_norm_kernel"))
                for n in names), names
+
+
+def _stacked_witness(W, V, P, alpha=None, eta=0.5):
+    """Float64 witnesses of B10 (the (L, N, N) Grams) or, given alpha,
+    of B13 (W + eta·(-2 Σ_i alpha_i R_i))."""
+    R = (W[None] - V).double() @ P.double()
+    if alpha is None:
+        return torch.einsum("iloc,jloc->lij", R, R)
+    return W.double() + eta * (-2.0 * torch.einsum("ln,nloi->loi", alpha.double(), R))
+
+
+# (L, out, in, N): ragged out/in/depth (in % 4 != 0 takes the 4-byte
+# copies), a multi-tile ragged leaf, 64 x 96, and Qwen2-0.5B's wq
+TF32_SHAPES = ((3, 33, 65, 1), (3, 200, 300, 5), (2, 64, 96, 3), (24, 896, 896, 2))
+
+
+@pytest.mark.parametrize("shape", TF32_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_update_stacked_3xtf32(card, shape):
+    """B13 on the tensor cores (3xTF32): one launch of its tf32 kernel,
+    bitwise reproducible, and on inputs scaled x1e3 within 4x the plain
+    fp32 version's error against float64, plus 1e-7 max|W'|."""
+    W, V, P, _, a = _stacked_inputs(card, *shape)
+    W, V = W * 1e3, V * 1e3
+    before = maecho_update_stacked.launches
+    got = maecho_update_stacked(W, V, P, a, 0.5)
+    assert maecho_update_stacked.launches - before == 1
+    assert torch.equal(got, maecho_update_stacked(W, V, P, a, 0.5))
+    want = _stacked_witness(W, V, P, a)
+    err = (got.double() - want).abs().max().item()
+    err_plain = (ref.maecho_update_stacked_ref(W, V, P, a, 0.5).double()
+                 - want).abs().max().item()
+    assert err <= 4 * err_plain + 1e-7 * want.abs().max().item(), (err, err_plain)
+    names = _kernel_names(lambda: maecho_update_stacked(W, V, P, a, 0.5))
+    assert len(names) == 1 and "update_tf32_kernel" in names[0], names
+
+
+@pytest.mark.parametrize("shape", TF32_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_gram_stacked_3xtf32(card, shape):
+    """B10 on the tensor cores (3xTF32 residuals, fixed-order fp32 pair
+    sums): its tf32 kernel and the fp64 tile-order reduce, bitwise
+    reproducible, symmetric, and on inputs scaled x1e3 within 4x the plain
+    fp32 version's error against float64, plus 1e-7 max|G|."""
+    W, V, P, _, _ = _stacked_inputs(card, *shape)
+    W, V = W * 1e3, V * 1e3
+    before = maecho_gram_stacked.launches
+    got = maecho_gram_stacked(W, V, P)
+    assert maecho_gram_stacked.launches - before == 1
+    assert torch.equal(got, maecho_gram_stacked(W, V, P))
+    assert torch.equal(got, got.transpose(1, 2))
+    want = _stacked_witness(W, V, P)
+    err = (got.double() - want).abs().max().item()
+    err_plain = (ref.maecho_gram_stacked_ref(W, V, P).double() - want).abs().max().item()
+    assert err <= 4 * err_plain + 1e-7 * want.abs().max().item(), (err, err_plain)
+    names = _kernel_names(lambda: maecho_gram_stacked(W, V, P))
+    assert len(names) == 2, names
+    assert "gram_tf32_kernel" in names[0] and "gram_reduce_f64_kernel" in names[1], names
+
+
+@pytest.mark.parametrize("N", (54, 55))
+def test_gram_stacked_routes_by_clients(card, N):
+    """B10 takes its tf32 kernel up to 54 clients and the SIMT blocked
+    launch past them, both against the plain version at 1e-5 max|G|."""
+    W, V, P, _, _ = _stacked_inputs(card, 2, 64, 96, N)
+    G, Gr = maecho_gram_stacked(W, V, P), ref.maecho_gram_stacked_ref(W, V, P)
+    assert (G - Gr).abs().max() <= 1e-5 * Gr.abs().max()
+    assert torch.equal(G, maecho_gram_stacked(W, V, P))
+    names = _kernel_names(lambda: maecho_gram_stacked(W, V, P))
+    want = "gram_tf32_kernel" if N <= 54 else "gram_blocked_partial_kernel"
+    assert any(want in n for n in names) and len(names) == 2, names
 
 
 def test_stacked_wrappers_reject_bad_operands(card):

@@ -176,29 +176,116 @@ def test_tf32_split_is_within_2_pow_minus_22(exponent, mantissa, negative):
     assert bool(((xt.double() - hi.double()).abs() <= 2.0 ** -11 * xt.double().abs()).all())
 
 
-def _emulated_v_update_3xtf32(W, V, P, frac, norm, eps=1e-12):
-    """B16's scheme in torch on the CPU: D = W' - V in fp32, D and P split
-    into tf32 hi and lo, the product D·P in k-steps of 8 as hi·hi + hi·lo
-    + lo·hi, each summed into one fp32 accumulator in that order; then
-    u = D - frac·acc, the row norm, V + u."""
-    d = W[None] - V
+def _stage_parts(d, P, small_first=False):
+    """The 3xTF32 residual products of B10/B13/B16 in torch: d and P split
+    into tf32 hi and lo, and for each 32-deep stage of the depth a fresh
+    accumulator summing the stage's products (the wgmma's sum inside a
+    k-step of 8 is fp32 here): B16 takes, k-step by k-step, hi·hi + hi·lo
+    + lo·hi; B10 and B13 (``small_first``) hi·lo + lo·hi of each k-step,
+    then the four hi·hi.  Yields each stage's part of d·P."""
     dh, dl = _split_tf32(d)
     ph, pl = _split_tf32(P)
-    acc = torch.zeros_like(d)
-    for k0 in range(0, P.shape[-1], 8):
-        k = slice(k0, k0 + 8)
-        acc = acc + dh[..., k] @ ph[..., k, :]
-        acc = acc + dh[..., k] @ pl[..., k, :]
-        acc = acc + dl[..., k] @ ph[..., k, :]
-    u = d - frac * acc
+    depth = P.shape[-1]
+    for k0 in range(0, depth, 32):
+        steps = [slice(k8, k8 + 8) for k8 in range(k0, min(k0 + 32, depth), 8)]
+        if small_first:
+            terms = ([t for k in steps for t in ((dh, pl, k), (dl, ph, k))]
+                     + [(dh, ph, k) for k in steps])
+        else:
+            terms = [t for k in steps for t in ((dh, ph, k), (dh, pl, k), (dl, ph, k))]
+        part = torch.zeros(d.shape[:-1] + P.shape[-1:])
+        for a, b, k in terms:
+            part = part + a[..., k] @ b[..., k, :]
+        yield part
+
+
+def _fma(a, b, c):
+    """fp32 fmaf(a, b, c): the product exact in float64, one rounding to
+    float32 (up to the rare double rounding)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _emulated_residual_3xtf32(W, V, P, small_first=False):
+    """R = (W - V)·P as the kernels form it: each stage's fresh part added
+    to the running sum in fp32."""
+    acc = torch.zeros(V.shape[:-1] + P.shape[-1:])
+    for part in _stage_parts(W[None] - V, P, small_first):
+        acc = acc + part
+    return acc
+
+
+def _emulated_v_update_3xtf32(W, V, P, frac, norm, eps=1e-12):
+    """B16's scheme in torch on the CPU: D = W' - V in fp32, D·P by
+    :func:`_emulated_residual_3xtf32`; then u = D - frac·acc, the row
+    norm, V + u."""
+    d = W[None] - V
+    u = d - frac * _emulated_residual_3xtf32(W, V, P)
     if norm:
         u = u / torch.linalg.vector_norm(u, dim=-1, keepdim=True).clamp_min(eps)
     return V + u
 
 
+def _emulated_update_3xtf32(W, V, P, alpha, eta):
+    """B13's scheme: clients in order, each client's stages in order (small
+    products first), each stage's fresh part added to one running sum by
+    an fp32 FMA times m_i = -2 alpha_i; then fmaf(eta, acc, W)."""
+    parts = list(_stage_parts(W[None] - V, P, small_first=True))   # (N, L, out, in)
+    acc = torch.zeros_like(W)
+    for i in range(V.shape[0]):
+        m = (-2.0 * alpha[:, i])[:, None, None]
+        for part in parts:
+            acc = _fma(m, part[i], acc)
+    return _fma(torch.tensor(eta), acc, W)
+
+
+def _fragments(R):
+    """R (..., out, in) cut into B10's 128 x 128 tiles (zero outside the
+    leaf), each as the 256 threads' accumulator registers: (..., tiles,
+    warp 8, lane 32, register 64), tiles in (out tile, in tile) order.
+    Register 4n + 2i + j of lane 4g + t in warp 4wg + w4 holds row
+    64wg + 16w4 + 8i + g, column 8n + 2t + j."""
+    *lead, out_d, in_d = R.shape
+    ro, ri = -(-out_d // 128), -(-in_d // 128)
+    X = torch.zeros(*lead, ro * 128, ri * 128)
+    X[..., :out_d, :in_d] = R
+    X = X.reshape(*lead, ro, 2, 4, 2, 8, ri, 16, 4, 2)    # (ro, wg, w4, i, g, ri, n, t, j)
+    k = len(lead)
+    X = X.permute(*range(k), k, k + 5, k + 1, k + 2, k + 4, k + 7, k + 6, k + 3, k + 8)
+    return X.reshape(*lead, ro * ri, 8, 32, 64)
+
+
+def _emulated_gram_3xtf32(W, V, P):
+    """B10's scheme: each R_i by :func:`_emulated_residual_3xtf32` (small
+    products first); each pair's tile partial a sequential fmaf over each
+    thread's 64 registers, an xor butterfly over the lanes (16, 8, 4, 2,
+    1), the warps summed in index order; each layer's tiles summed in tile
+    order in float64, rounded once (the reduce)."""
+    frag = _fragments(_emulated_residual_3xtf32(W, V, P, small_first=True))
+    N, L = V.shape[:2]
+    lanes = torch.arange(32)
+    G = torch.zeros(L, N, N)
+    for i in range(N):
+        for j in range(i + 1):
+            s = torch.zeros(frag.shape[1:-1])
+            for e in range(64):
+                s = _fma(frag[i, ..., e], frag[j, ..., e], s)
+            for off in (16, 8, 4, 2, 1):
+                s = s + s[..., lanes ^ off]
+            tile = torch.zeros(s.shape[:2])
+            for w in range(8):
+                tile = tile + s[..., w, 0]
+            g = torch.zeros(L, dtype=torch.float64)
+            for t in range(tile.shape[1]):
+                g = g + tile[:, t].double()
+            G[:, i, j] = G[:, j, i] = g.float()
+    return G
+
+
+SCHEME_SHAPES = ((2, 3, 128, 256), (2, 2, 33, 65), (1, 2, 200, 300), (3, 1, 64, 96))
+
+
 @pytest.mark.parametrize("norm", (False, True))
-@pytest.mark.parametrize("shape", ((2, 3, 128, 256), (2, 2, 33, 65), (1, 2, 200, 300),
-                                   (3, 1, 64, 96)), ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("shape", SCHEME_SHAPES, ids=lambda s: "x".join(map(str, s)))
 def test_3xtf32_scheme_matches_reference_kernel(shape, norm):
     """The emulated 3xTF32 scheme of B16 against the reference's
     ``maecho_v_update_stacked`` in interpret mode (one block a leaf, so
@@ -211,6 +298,45 @@ def test_3xtf32_scheme_matches_reference_kernel(shape, norm):
                                        bk=in_d)
     got = _emulated_v_update_3xtf32(*to_port((W, V, P)), frac, norm)
     _close(got, want, **APPLY_TOL)
+
+
+@pytest.mark.parametrize("shape", SCHEME_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_3xtf32_update_scheme_matches_reference_kernel(shape):
+    """B13's scheme (per-stage parts, FMA'd into one running sum times
+    -2 alpha_i, clients in order) against the reference's
+    ``maecho_update_stacked`` in interpret mode at 1e-4."""
+    L, n, out_d, in_d = shape
+    W, V, P, a = _stacked_leaf(41 + out_d, n, L, out_d, in_d, "full")
+    want = jmu.maecho_update_stacked(W, V, P, a, eta=0.5, bo=out_d, bi=in_d, bk=in_d)
+    got = _emulated_update_3xtf32(*to_port((W, V, P, a)), 0.5)
+    _close(got, want, **APPLY_TOL)
+
+
+@pytest.mark.parametrize("shape", SCHEME_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_3xtf32_gram_scheme_matches_reference_kernel(shape):
+    """B10's scheme (3xTF32 residual tiles, fixed-order pair contraction
+    over threads, lanes, warps and tiles) against the reference's
+    ``maecho_gram_stacked`` in interpret mode at the Gram tolerance
+    (rtol 1e-4), and symmetric."""
+    L, n, out_d, in_d = shape
+    W, V, P, _ = _stacked_leaf(51 + out_d, n, L, out_d, in_d, "full")
+    want = jmg.maecho_gram_stacked(W, V, P, bo=out_d, bi=in_d, bk=in_d)
+    got = _emulated_gram_3xtf32(*to_port((W, V, P)))
+    assert torch.equal(got, got.transpose(1, 2))
+    _close(got, want, **GRAM_TOL)
+
+
+def test_fragment_layout_is_a_permutation():
+    """:func:`_fragments` puts each element of a tile in exactly one
+    thread's register, where the accumulator layout says: row ra + 8i,
+    column 8n + 2t + j."""
+    R = torch.arange(128 * 128, dtype=torch.float32).reshape(128, 128)
+    frag = _fragments(R)[0]                              # (8, 32, 64)
+    assert torch.equal(frag.flatten().sort().values, R.flatten())
+    for warp, lane, e in ((0, 0, 0), (5, 17, 39), (7, 31, 63), (3, 6, 2)):
+        ra = 64 * (warp // 4) + 16 * (warp % 4) + lane // 4
+        n, i, j = e // 4, (e // 2) % 2, e % 2
+        assert frag[warp, lane, e] == R[ra + 8 * i, 8 * n + 2 * (lane % 4) + j]
 
 
 @pytest.mark.parametrize("lead", ((), (3,), (2, 2)), ids=("levels0", "levels1", "levels2"))

@@ -8,16 +8,22 @@ each in its own process.
 
 Kernels (ids of PERF.md §6) and the shapes of the main paths they run at:
 B10/B13/B16 at Qwen2-0.5B's wq (24 x 896 x 896) and w_gate
-(24 x 4864 x 896), N = 2, dense rank-in/2 projectors (B16 beside
-``torch.bmm(D, P)``, the product alone, TF32 off); B19 at the chunk
+(24 x 4864 x 896), N = 2, dense rank-in/2 projectors (each beside
+``torch.bmm(D, P)``, their product alone, TF32 off); B19 at the chunk
 shapes (ca, cb, D) beside ``torch.mm(Ra, Rb.T)``; B21 at the serving
 prefill (8, 512, 14/2 heads of 64), causal, bf16 and fp32, and B22 at
 the serving decode (8, W = 640, 2 kv heads, group 7, 64) filled to 576
 and at W = 4096 filled to 4000, bf16, both beside
 ``scaled_dot_product_attention``.  Device times from CUDA-graph replays;
-the kernels are built from ``--src`` first.  Prints one JSON line, with
-the card's name and power limit.
+the kernels are built from ``--src`` first.  B10/B13/B16 rows carry the
+kernel's and the plain version's max error against the function in
+float64 (``f64_err``, ``plain_f64_err``, beside ``f64_max``).  Each row
+carries the sha256 of the kernel's output; each kernel's inputs come
+from ``--seed`` alone (not from the kernels listed before it), so two
+checkouts' outputs can be compared bit for bit.
+Prints one JSON line, with the card's name and power limit.
 """
+import hashlib
 import argparse
 import json
 import pathlib
@@ -50,7 +56,7 @@ def graph_ms(torch, fn, reps: int) -> float:
 
 def stacked_cases(torch, gen, which):
     """B10 / B13 / B16 at wq and w_gate: (name, kernel fn, plain fn,
-    library fn or None, reps)."""
+    library fn or None, reps, float64 witness fn)."""
     from repro_torch.kernels import maecho_gram, maecho_update, maecho_v_update, ref
 
     for label, L, out_d, in_d, N in (("wq", 24, 896, 896, 2), ("w_gate", 24, 4864, 896, 2)):
@@ -61,19 +67,30 @@ def stacked_cases(torch, gen, which):
         del U
         a = torch.softmax(torch.randn(L, N, device="cuda", generator=gen), -1).contiguous()
         tag = f"{label} (L={L}, {out_d}x{in_d}, N={N})"
+        D = (W[None] - V).reshape(N * L, out_d, in_d)
+        Pf = P.reshape(N * L, in_d, in_d)
+
+        def witness():          # the function in float64
+            R = torch.bmm(D.double(), Pf.double()).reshape(N, L, out_d, in_d)
+            if which == "B10":
+                return torch.einsum("iloc,jloc->lij", R, R)
+            if which == "B13":
+                return W.double() - torch.einsum("ln,nloi->loi", a.double(), R)
+            return V.double() + (W[None] - V).double() - 20 / 21 * R
+
         if which == "B10":
             yield (tag, lambda: maecho_gram.maecho_gram_stacked(W, V, P),
-                   lambda: ref.maecho_gram_stacked_ref(W, V, P), None, 3)
+                   lambda: ref.maecho_gram_stacked_ref(W, V, P), lambda: torch.bmm(D, Pf), 3,
+                   witness)
         elif which == "B13":
             yield (tag, lambda: maecho_update.maecho_update_stacked(W, V, P, a, 0.5),
-                   lambda: ref.maecho_update_stacked_ref(W, V, P, a, 0.5), None, 3)
+                   lambda: ref.maecho_update_stacked_ref(W, V, P, a, 0.5),
+                   lambda: torch.bmm(D, Pf), 3, witness)
         else:
-            D = (W[None] - V).reshape(N * L, out_d, in_d)
-            Pf = P.reshape(N * L, in_d, in_d)
             yield (tag, lambda: maecho_v_update.maecho_v_update_stacked(W, V, P, 20 / 21),
                    lambda: ref.maecho_v_update_stacked_ref(W, V, P, 20 / 21),
-                   lambda: torch.bmm(D, Pf), 3)
-        del W, V, P
+                   lambda: torch.bmm(D, Pf), 3, witness)
+        del W, V, P, D, Pf
 
 
 def cross_cases(torch, gen):
@@ -152,13 +169,23 @@ def main() -> None:
         sys.exit("time_kernels: needs a GPU")
     torch.backends.cuda.matmul.allow_tf32 = False
     build.build_all(tuple(dict.fromkeys(CASES[k][0] for k in ids)))
-    gen = torch.Generator(device="cuda").manual_seed(args.seed)
     rows = []
-    for kid in ids:
-        for tag, k_fn, p_fn, lib_fn, reps in CASES[kid][1](torch, gen):
+    for kid in ids:     # each kernel's inputs from its own stream: digests compare across lists
+        gen = torch.Generator(device="cuda").manual_seed(args.seed)
+        for tag, k_fn, p_fn, lib_fn, reps, *witness in CASES[kid][1](torch, gen):
             got, want = k_fn(), p_fn()
             err = (got.float() - want.float()).abs().max().item()
-            rows.append({"kernel": kid, "case": tag, "max_abs_err": err,
+            digest = hashlib.sha256(got.contiguous().cpu().numpy().tobytes()).hexdigest()
+            if witness:         # kernel's and plain version's max error against float64
+                w64 = witness[0]()
+                f64 = {"f64_err": (got.double() - w64).abs().max().item(),
+                       "plain_f64_err": (want.double() - w64).abs().max().item(),
+                       "f64_max": w64.abs().max().item()}
+                del w64
+            else:
+                f64 = {}
+            rows.append({"kernel": kid, "case": tag, "max_abs_err": err, "out_sha256": digest,
+                         **f64,
                          "ms": graph_ms(torch, k_fn, reps),
                          "plain_ms": graph_ms(torch, p_fn, reps),
                          "library_ms": graph_ms(torch, lib_fn, reps) if lib_fn else None})
