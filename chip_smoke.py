@@ -180,6 +180,15 @@ the TF32 rate (``FP32_TOL_FLOPS``: three TF32 products keep fp32
 accuracy), with the fp32 SIMT figure printed beside it; the elementwise
 diagonal kernels stay at the fp32 SIMT rate.
 
+Added with B1 and B4 on 3xTF32 ``wgmma`` (the depth split across the
+card): the ``[sass]`` check covers B1's and B4's libraries too; phase 1
+prints B1's and B4's error against float64 beside their plain versions'
+at W0, W1 and the ragged 1000 x 1100 (N = 8) and times B1 and B4 at the
+CNN's fc0 (256 x 1024, N = 4) beside ``torch.bmm(W - V, P)``; phase 9
+prints B1's kernels (no client cap: the fused fix-up and pair sums up to 8
+clients, B19's contraction above), time and workspace at N = 4, 55, 64
+and 128.
+
 It prints each phase's time, the QP's and the kernels' time inside a
 kernel aggregate of each path (CUDA events around each call), a
 ``{"kernels": [...]}`` JSON line, the card's name and power limit, and
@@ -223,6 +232,14 @@ FACTORED = ("maecho_gram_left", "maecho_update_left", "maecho_v_update_factored"
 DIAG = ("maecho_gram_diag", "maecho_update_diag", "maecho_v_update_diag")  # B3 B6 B9
 STACKED = ("maecho_gram_stacked", "maecho_update_stacked",
            "maecho_v_update_stacked")                                      # B10 B13 B16
+TF32 = DENSE[:2] + STACKED      # on 3xTF32 wgmma: B1 B4 B10 B13 B16
+# B1's kernels: up to 8 clients the share kernel, then each tile's fix-up
+# and pair sums in one pass; above, the fix-up and B19's contraction.
+# Printed, not profiled here: every torch.profiler session before phase 16
+# risks its B22 check seeing no device events (the card tests check names)
+B1_ROUTES = {True: ("splitk_tf32_kernel", "gram_tile_pairs_kernel", "gram_pairs_reduce_kernel"),
+             False: ("splitk_tf32_kernel", "splitk_fixup_kernel", "gram_cross_partial_kernel",
+                     "gram_cross_reduce_kernel")}
 STACKED_DIAG = ("maecho_gram_diag_stacked", "maecho_update_diag_stacked",
                 "maecho_v_update_diag_stacked")                            # B12 B15 B18
 STACKED_LEFT = ("maecho_gram_left_stacked", "maecho_update_left_stacked",
@@ -308,9 +325,9 @@ def graph_ms(torch, fn, reps: int) -> float:
 
 
 def check_tf32_sass(build) -> None:
-    """B10, B13 and B16 run 3xTF32 on the tensor cores: the SASS of each
-    one's library must hold TF32 HGMMA (wgmma) instructions."""
-    for name in STACKED:
+    """B1, B4, B10, B13 and B16 run 3xTF32 on the tensor cores: the SASS
+    of each one's library must hold TF32 HGMMA (wgmma) instructions."""
+    for name in TF32:
         lib = build.library_path(name)
         sass = subprocess.run([build.cuda_tool("cuobjdump"), "-sass", str(lib)], check=True,
                               capture_output=True, text=True).stdout
@@ -398,6 +415,7 @@ def phase_kernels(torch, kern, ref):
     for label, out_d, in_d, N in (("W0", 400, 784, 4), ("W1", 200, 400, 4),
                                   ("ragged", 1000, 1100, 8)):
         W, V, P, alpha = layer_inputs(torch, gen, out_d, in_d, N)
+        dense_f64_errors(torch, kern, ref, label, W, V, P, alpha, eta)
         G, Gr = kern.maecho_gram(W, V, P), ref.maecho_gram_ref(W, V, P)
         e = (G - Gr).abs().max().item()
         tol = GRAM_RTOL * Gr.abs().max().item()
@@ -421,7 +439,8 @@ def phase_kernels(torch, kern, ref):
     torch.cuda.synchronize()
 
     timings = {}
-    for label, out_d, in_d, N in (("W0", 400, 784, 4), ("W1", 200, 400, 4)):
+    for label, out_d, in_d, N in (("W0", 400, 784, 4), ("W1", 200, 400, 4),
+                                  ("fc0", 256, 1024, 4)):
         W, V, P, alpha = layer_inputs(torch, gen, out_d, in_d, N)
         Wn = kern.maecho_update(W, V, P, alpha, eta)
         OI, II = out_d * in_d, in_d * in_d
@@ -440,10 +459,31 @@ def phase_kernels(torch, kern, ref):
                                 gemm + 4.0 * N * OI,
                                 4.0 * (OI + 2 * N * OI + N * II)),
         }
+        if label == "fc0":      # the CNN's fc0: B1 and B4 only
+            del cases["maecho_v_update"]
         time_cases(torch, label, cases, timings)
         product_alone(torch, label, "B1/B4/B7", "torch.bmm(W - V, P)",
                       lambda D=(W[None] - V): torch.bmm(D, P), 50)
     return err, timings
+
+
+def dense_f64_errors(torch, kern, ref, label, W, V, P, alpha, eta) -> None:
+    """Print B1's and B4's max error against the function in float64,
+    beside their plain versions' (B1 and B4 run 3xTF32 on the tensor
+    cores)."""
+    R = (W[None] - V).double() @ P.double()
+    Rf = R.reshape(R.shape[0], -1)
+    G64 = Rf @ Rf.T
+    W64 = W.double() + eta * (-2.0 * torch.einsum("n,noi->oi", alpha.double(), R))
+    for name, got, plain, want in (
+            ("maecho_gram", kern.maecho_gram(W, V, P), ref.maecho_gram_ref(W, V, P), G64),
+            ("maecho_update", kern.maecho_update(W, V, P, alpha, eta),
+             ref.maecho_update_ref_any(W, V, P, alpha, eta), W64)):
+        print(f"[kernels] {label} ({W.shape[0]}x{W.shape[1]}, N={V.shape[0]}) {name} "
+              f"against float64: kernel {(got.double() - want).abs().max().item():.3e}, "
+              f"plain {(plain.double() - want).abs().max().item():.3e}, "
+              f"max {want.abs().max().item():.3e}")
+    del R, Rf, G64, W64
 
 
 def product_alone(torch, label: str, ids: str, call: str, fn, reps: int) -> None:
@@ -809,12 +849,13 @@ def gram64(R):
 
 
 def phase_many_clients(torch, kern, ref, timings):
-    """The six Gram kernels past 54 clients (client blocks of at most 27,
-    one CTA per tile and block pair) against their plain versions and a
-    float64 Gram on a W0-sized leaf (400 x 784; L = 2 for the stacked
-    ones; factored rank 78), bitwise reproducible, timed with their
-    plain versions at N = 4 and MANY_CLIENTS.  Returns {name: max
-    |kernel - plain|}."""
+    """The six Gram kernels past 54 clients (B2, B3, B10, B11, B12 in
+    client blocks of at most 27, one CTA per tile and block pair; B1 with
+    no client cap, its kernels and workspace printed) against their plain
+    versions and a float64 Gram on a W0-sized leaf (400 x 784; L = 2 for
+    the stacked ones; factored rank 78), bitwise reproducible, timed
+    with their plain versions at N = 4 and MANY_CLIENTS.  Returns
+    {name: max |kernel - plain|}."""
     from repro_torch.kernels import build, maecho_gram
 
     gen = torch.Generator(device="cuda").manual_seed(5)
@@ -870,6 +911,11 @@ def phase_many_clients(torch, kern, ref, timings):
             time_cases(torch, f"N{N}", {name: (lambda: fn(*a), lambda: plain(*a), fl, nb,
                                                *rate)},
                        timings, 3 if N > 4 else 20)
+            if name == "maecho_gram":   # B1: its kernels by N, its workspace
+                ws = build.load(name, maecho_gram._SIGS).maecho_gram_workspace_floats(
+                    N, out_d, in_d)
+                print(f"[c1] N={N} maecho_gram route {list(B1_ROUTES[N <= 8])}: "
+                      f"{timings[(name, f'N{N}')][0]:.4f} ms, workspace {4 * ws / 1e6:.3f} MB")
         del W, V, P, Uf, A, UT, p, one, args
     ws = build.load("maecho_gram_stacked", maecho_gram._STACKED_SIGS)
     n = MANY_CLIENTS[-1]

@@ -1,6 +1,8 @@
-// 3xTF32 tensor-core machinery of the dense stacked MA-Echo kernels for
-// Hopper (sm_90a): B10 (Eq. 6 Gram, maecho_gram_stacked.cu), B13 (Eq. 7,
-// maecho_update_stacked.cu) and B16 (Eq. 11, maecho_v_update_stacked.cu).
+// 3xTF32 tensor-core machinery of the dense MA-Echo kernels for Hopper
+// (sm_90a): B10 (Eq. 6 Gram, maecho_gram_stacked.cu), B13 (Eq. 7,
+// maecho_update_stacked.cu) and B16 (Eq. 11, maecho_v_update_stacked.cu),
+// and through maecho_splitk.cuh B1 and B4 (maecho_gram.cu,
+// maecho_update.cu), which split a leaf's stage sequence into shares.
 //
 // Each forms residual tiles R_i = (W_l - V_il) P_il of 128 (out) x 128 (in)
 // with fp32 accuracy on the tensor cores.  A CTA is two consumer warpgroups
@@ -325,6 +327,46 @@ __device__ __forceinline__ void run_stages(unsigned char* smem, int G, int out_d
     after(g);
   }
 }
+
+// A share of a run_stages sequence (B1, B4: maecho_splitk.cuh).  The
+// (tile, client, depth step) stages of an unstacked leaf, T of them, are
+// cut into C equal shares (stream-K): CTA c takes stages share_begin(c)
+// .. share_begin(c + 1) - 1, and cta_of(x) is the CTA whose share holds
+// stage x.  Stage g is depth step g % nk of client (g / nk) % N on tile
+// g / (nk N), tiles in (out tile, in tile) order.  A cursor is set once
+// at a share's first stage (its only divisions) and then walks the share
+// a stage at a time, refreshing the tile's coordinates once a tile, as
+// B10's and B13's own cursors do.
+__host__ __device__ inline long long share_begin(long long c, long long T, int C) {
+  return c * T / C;
+}
+__host__ __device__ inline int cta_of(long long x, long long T, int C) {
+  return (int)(((x + 1) * C - 1) / T);
+}
+
+struct StageCursor {
+  int tile, client, step, o0, c0;
+  __device__ __forceinline__ void coords(int ct) {
+    const int by = tile / ct;
+    o0 = by * 128;
+    c0 = (tile - by * ct) * 128;
+  }
+  __device__ __forceinline__ void set(long long g, int N, int nk, int ct) {
+    const long long q = g / nk;
+    step = (int)(g - q * nk);
+    tile = (int)(q / N);
+    client = (int)(q - (long long)tile * N);
+    coords(ct);
+  }
+  __device__ __forceinline__ void next(int N, int nk, int ct) {
+    if (++step < nk) return;
+    step = 0;
+    if (++client < N) return;
+    client = 0;
+    ++tile;
+    coords(ct);
+  }
+};
 
 // Row of the accumulator register pair (4 n + 2 i + j) for thread tid: ra
 // (i = 0) and ra + 8 (i = 1).

@@ -17,12 +17,18 @@ the cross-Gram block ⟨Raᵢ, Rbⱼ⟩ of two client chunks' flat residual rows
 the pair contraction of the client-chunked Gram (``ops``' chunked
 pipeline).
 
-Every Gram kernel takes any number of clients N: up to 54 one CTA per
-tile parks them all, above that the client axis is cut into blocks of at
-most 27 and one CTA takes each pair of blocks (``csrc/maecho_tile.cuh``).
-B10 takes its own route up to 54 clients: residual tiles formed by
-3xTF32 ``wgmma`` (``csrc/maecho_tf32.cuh``, shared with B13 and B16) in a
-persistent grid that contracts them against a per-CTA scratch slab.
+Every Gram kernel takes any number of clients N.  B1 forms its residual
+tiles by 3xTF32 ``wgmma`` (``csrc/maecho_tf32.cuh``) with the depth split
+across the card (``csrc/maecho_splitk.cuh``, shared with B4), then sums
+the pairs in fp64: up to 8 clients each tile's fix-up and pair sums in
+one pass, above that B19's fixed-order contraction
+(``csrc/maecho_cross.cuh``) of the residual stack.  B2, B3, B11 and
+B12: up to 54 clients one CTA per tile parks them all, above that the
+client axis is cut into blocks of at most 27 and one CTA takes each pair
+of blocks (``csrc/maecho_tile.cuh``).  B10 takes its own route up to 54 clients:
+residual tiles formed by 3xTF32 ``wgmma`` (shared with B13 and B16) in a
+persistent grid that contracts them against a per-CTA scratch slab, and
+the blocked route above.
 
 On a CUDA tensor a wrapper launches its kernel (or raises); on a CPU
 tensor it runs the plain version in ``ref``.
@@ -45,7 +51,8 @@ _SIGS = {
 def maecho_gram(W, V, P):
     """W (out, in), V (N, out, in), P (N, in, in) float32 → the fp32
     (N, N) Gram.  Any out/in (ragged edges are masked in the kernel)
-    and any N."""
+    and any N.  The workspace holds the residual tiles, two partial
+    128 x 128 tiles per SM and the pair sums' partials."""
     if W.device.type == "cpu":
         return ref.maecho_gram_ref(W, V, P)
     build.check_f32_cuda("maecho_gram", W=W, V=V, P=P)
@@ -56,8 +63,10 @@ def maecho_gram(W, V, P):
                   f"P {tuple(P.shape)} do not match (out, in), (N, out, in), (N, in, in)")
     build.require(N >= 1, f"maecho_gram: N={N} clients, need at least 1")
     lib = build.load("maecho_gram", _SIGS)
-    ws = torch.empty(lib.maecho_gram_workspace_floats(N, out_d, in_d),
-                     dtype=torch.float32, device=W.device)
+    n_ws = lib.maecho_gram_workspace_floats(N, out_d, in_d)
+    if n_ws < 0:
+        raise RuntimeError("maecho_gram: cannot read the device's multiprocessor count")
+    ws = torch.empty(n_ws, dtype=torch.float32, device=W.device)
     G = torch.empty((N, N), dtype=torch.float32, device=W.device)
     err = lib.maecho_gram_launch(build.ptr(W), build.ptr(V), build.ptr(P),
                                  build.ptr(ws), build.ptr(G), N, out_d, in_d,

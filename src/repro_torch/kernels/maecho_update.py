@@ -24,7 +24,8 @@ import torch
 from repro_torch.kernels import build, ref
 
 _SIGS = {
-    "maecho_update_launch": (ctypes.c_int, [ctypes.c_void_p] * 5
+    "maecho_update_workspace_floats": (ctypes.c_longlong, [ctypes.c_int] * 3),
+    "maecho_update_launch": (ctypes.c_int, [ctypes.c_void_p] * 6
                              + [ctypes.c_int] * 3
                              + [ctypes.c_float, ctypes.c_void_p]),
 }
@@ -32,7 +33,9 @@ _SIGS = {
 
 def maecho_update(W, V, P, alpha, eta: float = 1.0):
     """W (out, in), V (N, out, in), P (N, in, in), alpha (N,) float32
-    → W' (out, in).  alpha stays on the device (no host sync)."""
+    → W' (out, in), the products as 3xTF32 on the tensor cores with the
+    depth split across the card (the workspace holds two partial
+    128 x 128 tiles per SM).  alpha stays on the device (no host sync)."""
     if W.device.type == "cpu":
         return ref.maecho_update_ref_any(W, V, P, alpha, eta)
     build.check_f32_cuda("maecho_update", W=W, V=V, P=P, alpha=alpha)
@@ -43,11 +46,16 @@ def maecho_update(W, V, P, alpha, eta: float = 1.0):
                   f"maecho_update: shapes W {tuple(W.shape)}, V {tuple(V.shape)}, "
                   f"P {tuple(P.shape)}, alpha {tuple(alpha.shape)} do not match "
                   f"(out, in), (N, out, in), (N, in, in), (N,)")
+    build.require(N >= 1, f"maecho_update: N={N} clients, need at least 1")
     lib = build.load("maecho_update", _SIGS)
+    n_ws = lib.maecho_update_workspace_floats(N, out_d, in_d)
+    if n_ws < 0:
+        raise RuntimeError("maecho_update: cannot read the device's multiprocessor count")
+    ws = torch.empty(n_ws, dtype=torch.float32, device=W.device)
     out = torch.empty_like(W)
     err = lib.maecho_update_launch(build.ptr(W), build.ptr(V), build.ptr(P),
-                                   build.ptr(alpha), build.ptr(out), N, out_d,
-                                   in_d, float(eta), build.stream())
+                                   build.ptr(alpha), build.ptr(ws), build.ptr(out), N,
+                                   out_d, in_d, float(eta), build.stream())
     build.check(err, "maecho_update")
     maecho_update.launches += 1
     return out

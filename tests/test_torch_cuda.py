@@ -1,7 +1,8 @@
 """The CUDA kernels B1/B4/B7, B2/B5/B8, B3/B6/B9, the stacked B10/B13/B16,
 B11/B14/B17 and B12/B15/B18, the chunk-pair cross-Gram B19, the
 block-RLS downdate B20 and the serving path's flash attention B21 and
-decode attention B22 against their plain versions on the card
+decode attention B22 against their plain versions on the card (the
+3xTF32 kernels B1, B4, B10, B13 and B16 also against float64)
 (``PYTHONPATH=src python -m pytest --noconftest tests/test_torch_cuda.py``
 on a machine with an NVIDIA Hopper GPU and ``nvcc``; ``--noconftest``
 because ``tests/conftest.py`` imports jax, which such a machine need not
@@ -401,6 +402,107 @@ def test_gram_stacked_routes_by_clients(card, N):
     names = _kernel_names(lambda: maecho_gram_stacked(W, V, P))
     want = "gram_tf32_kernel" if N <= 54 else "gram_blocked_partial_kernel"
     assert any(want in n for n in names) and len(names) == 2, names
+
+
+def _dense_witness(W, V, P, alpha=None, eta=0.5):
+    """Float64 witnesses of B1 (the (N, N) Gram) or, given alpha, of B4
+    (W + eta·(-2 Σ_i alpha_i R_i))."""
+    R = (W[None] - V).double() @ P.double()
+    if alpha is None:
+        Rf = R.reshape(R.shape[0], -1)
+        return Rf @ Rf.T
+    return W.double() + eta * (-2.0 * torch.einsum("n,noi->oi", alpha.double(), R))
+
+
+# B1's kernels: up to 8 clients the share kernel, then each tile's fix-up
+# and pair sums in one pass; above, the fix-up and B19's contraction
+B1_FUSED = ("splitk_tf32_kernel", "gram_tile_pairs_kernel", "gram_pairs_reduce_kernel")
+B1_CROSS = ("splitk_tf32_kernel", "splitk_fixup_kernel", "gram_cross_partial_kernel",
+            "gram_cross_reduce_kernel")
+B4_NAMES = B1_CROSS[:2]
+
+
+# (out, in, N): ragged out/in/depth (in % 4 != 0 takes the 4-byte
+# copies), a multi-tile ragged leaf, 64 x 96, the paper MLP's W0 and W1,
+# the CNN's fc0 and the ragged 1000 x 1100 of chip_smoke.py
+DENSE_TF32_SHAPES = ((33, 65, 1), (200, 300, 5), (64, 96, 3), (400, 784, 4), (200, 400, 4),
+                     (256, 1024, 4), (1000, 1100, 8))
+
+
+@pytest.mark.parametrize("shape", DENSE_TF32_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_gram_and_update_3xtf32(card, shape):
+    """B1 and B4 on the tensor cores (3xTF32, the depth split across the
+    card): each one wrapper launch, bitwise reproducible (B1's Gram
+    exactly symmetric), and on inputs scaled x1e3 within 4x the plain
+    fp32 version's error against float64, plus 1e-7 max|out|; B4's
+    kernels the share kernel and the fix-up, B1's (N <= 8) the share
+    kernel and the fused fix-up and pair sums."""
+    W, V, P, _, a = _stacked_inputs(card, 1, *shape)
+    W, V, P, a = W[0] * 1e3, V[:, 0] * 1e3, P[:, 0].contiguous(), a[0].contiguous()
+    for fn, plain, args, names in (
+            (maecho_gram, ref.maecho_gram_ref, (W, V, P), B1_FUSED),
+            (maecho_update, ref.maecho_update_ref_any, (W, V, P, a, 0.5), B4_NAMES)):
+        before = fn.launches
+        got = fn(*args)
+        assert fn.launches - before == 1
+        assert torch.equal(got, fn(*args))
+        if fn is maecho_gram:
+            assert torch.equal(got, got.T)
+        want = _dense_witness(W, V, P, *args[3:])
+        err = (got.double() - want).abs().max().item()
+        err_plain = (plain(*args).double() - want).abs().max().item()
+        assert err <= 4 * err_plain + 1e-7 * want.abs().max().item(), (fn.__name__, err,
+                                                                       err_plain)
+        got_names = _kernel_names(lambda: fn(*args))
+        assert len(got_names) == len(names), got_names
+        assert all(n in g for n, g in zip(names, got_names)), got_names
+
+
+@pytest.mark.parametrize("N", (2, 54, 55, 64, 128))
+def test_gram_routes_by_clients(card, N):
+    """B1 has no client cap: up to 8 clients the fused fix-up and pair
+    sums, above them the fix-up and B19's contraction, each against the
+    plain version at 1e-5 max|G| and bitwise reproducible."""
+    W = torch.randn(200, 300, device="cuda", generator=card)
+    V = W + 0.1 * torch.randn(N, 200, 300, device="cuda", generator=card)
+    U = torch.linalg.qr(torch.randn(N, 300, 150, device="cuda", generator=card))[0]
+    P = (U @ U.transpose(1, 2)).contiguous()
+    G, Gr = maecho_gram(W, V, P), ref.maecho_gram_ref(W, V, P)
+    assert (G - Gr).abs().max() <= 1e-5 * Gr.abs().max()
+    assert torch.equal(G, maecho_gram(W, V, P))
+    names = _kernel_names(lambda: maecho_gram(W, V, P))
+    want = B1_FUSED if N <= 8 else B1_CROSS
+    assert len(names) == len(want) and all(n in g for n, g in zip(want, names)), names
+
+
+def _b7_digest():
+    """sha256 of B7's output (row norm off and on) on inputs drawn with
+    numpy from a fixed seed at the paper MLP's W1 (200 x 400, N = 4)."""
+    import hashlib
+
+    import numpy as np
+
+    r = np.random.RandomState(7)
+    W = r.randn(200, 400).astype(np.float32)
+    V = (W + 0.1 * r.randn(4, 200, 400)).astype(np.float32)
+    U = np.linalg.qr(r.randn(4, 400, 200))[0]
+    P = (U @ U.transpose(0, 2, 1)).astype(np.float32)
+    W, V, P = (torch.from_numpy(x).cuda() for x in (W, V, P))
+    h = hashlib.sha256()
+    for norm in (False, True):
+        h.update(maecho_v_update(W, V, P, 20 / 21, norm).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+# B7's digest on the tree before B1 and B4 left the SIMT templates it
+# shares with them (an NVIDIA H100 80GB HBM3; torch 2.11.0+cu128)
+B7_DIGEST = "9bbe8be6b34b020fdb5d2265d7524d4518079a9dd961fe4d7b2667bc44233746"
+
+
+def test_v_update_output_unchanged(card):
+    """B7 still runs maecho_tile.cuh's SIMT templates: its output is
+    bitwise what it was."""
+    assert _b7_digest() == B7_DIGEST
 
 
 def test_stacked_wrappers_reject_bad_operands(card):

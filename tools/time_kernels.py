@@ -7,7 +7,10 @@ each in its own process.
     python3 tools/time_kernels.py --kernels B16,B22 [--src path/to/src] [--label name]
 
 Kernels (ids of PERF.md §6) and the shapes of the main paths they run at:
-B10/B13/B16 at Qwen2-0.5B's wq (24 x 896 x 896) and w_gate
+B1/B4 at the paper MLP's W0 (400 x 784) and W1 (200 x 400) and the CNN's
+fc0 (256 x 1024), N = 4, and at W0 with N = 64 (beside ``torch.bmm(W - V,
+P)``, TF32 off), B7, B2 (k = 78) and B3 at those three leaves; B11 (k =
+89) and B12 at Qwen2-0.5B's wq; B10/B13/B16 at Qwen2-0.5B's wq (24 x 896 x 896) and w_gate
 (24 x 4864 x 896), N = 2, dense rank-in/2 projectors (each beside
 ``torch.bmm(D, P)``, their product alone, TF32 off); B19 at the chunk
 shapes (ca, cb, D) beside ``torch.mm(Ra, Rb.T)``; B21 at the serving
@@ -15,12 +18,12 @@ prefill (8, 512, 14/2 heads of 64), causal, bf16 and fp32, and B22 at
 the serving decode (8, W = 640, 2 kv heads, group 7, 64) filled to 576
 and at W = 4096 filled to 4000, bf16, both beside
 ``scaled_dot_product_attention``.  Device times from CUDA-graph replays;
-the kernels are built from ``--src`` first.  B10/B13/B16 rows carry the
-kernel's and the plain version's max error against the function in
-float64 (``f64_err``, ``plain_f64_err``, beside ``f64_max``).  Each row
-carries the sha256 of the kernel's output; each kernel's inputs come
-from ``--seed`` alone (not from the kernels listed before it), so two
-checkouts' outputs can be compared bit for bit.
+the kernels are built from ``--src`` first.  B1/B4 and B10/B13/B16 rows
+carry the kernel's and the plain version's max error against the
+function in float64 (``f64_err``, ``plain_f64_err``, beside
+``f64_max``).  Each row carries the sha256 of the kernel's output; each
+kernel's inputs come from ``--seed`` alone (not from the kernels listed
+before it), so two checkouts' outputs can be compared bit for bit.
 Prints one JSON line, with the card's name and power limit.
 """
 import hashlib
@@ -93,6 +96,85 @@ def stacked_cases(torch, gen, which):
         del W, V, P, D, Pf
 
 
+def dense_cases(torch, gen, which):
+    """B1 / B4 (and B7, B2, B3: the unstacked kernels that still run the
+    SIMT templates) at the paper MLP's W0 (400 x 784) and W1 (200 x 400)
+    and the CNN's fc0 (256 x 1024), N = 4, and B1 / B4 at W0 with N = 64,
+    with dense rank-in/2 projectors: (name, kernel fn, plain fn, library
+    fn or None, reps[, float64 witness fn]).  B1/B4/B7 beside
+    ``torch.bmm(W - V, P)`` and B2 (k = 78) beside ``torch.bmm(A, UT)``,
+    TF32 off."""
+    from repro_torch.kernels import maecho_gram, maecho_update, maecho_v_update, ref
+
+    shapes = (("W0", 400, 784, 4), ("W1", 200, 400, 4), ("fc0", 256, 1024, 4))
+    if which in ("B1", "B4"):
+        shapes += (("W0", 400, 784, 64),)
+    for label, out_d, in_d, N in shapes:
+        W = torch.randn(out_d, in_d, device="cuda", generator=gen) * 0.1
+        V = W + torch.randn(N, out_d, in_d, device="cuda", generator=gen) * 0.05
+        U = torch.linalg.qr(torch.randn(N, in_d, in_d // 2, device="cuda", generator=gen))[0]
+        P = (U @ U.transpose(-1, -2)).contiguous()
+        a = torch.softmax(torch.randn(N, device="cuda", generator=gen), 0)
+        tag = f"{label} ({out_d}x{in_d}, N={N})"
+        D = W[None] - V
+        reps = 3 if N > 4 else 20
+
+        def witness():          # the function in float64
+            R = D.double() @ P.double()
+            Rf = R.reshape(N, -1)
+            return Rf @ Rf.T if which == "B1" else \
+                W.double() - torch.einsum("n,noi->oi", a.double(), R)
+
+        if which == "B1":
+            yield (tag, lambda: maecho_gram.maecho_gram(W, V, P),
+                   lambda: ref.maecho_gram_ref(W, V, P), lambda: torch.bmm(D, P), reps,
+                   witness)
+        elif which == "B4":
+            yield (tag, lambda: maecho_update.maecho_update(W, V, P, a, 0.5),
+                   lambda: ref.maecho_update_ref_any(W, V, P, a, 0.5),
+                   lambda: torch.bmm(D, P), reps, witness)
+        elif which == "B7":
+            yield (tag, lambda: maecho_v_update.maecho_v_update(W, V, P, 20 / 21),
+                   lambda: ref.maecho_v_update_ref(W, V, P, 20 / 21),
+                   lambda: torch.bmm(D, P), reps)
+        elif which == "B2":
+            Uk = torch.linalg.qr(torch.randn(N, in_d, 78, device="cuda", generator=gen))[0]
+            s = torch.rand(N, 78, device="cuda", generator=gen) * 0.9 + 0.1
+            A = maecho_gram.compressed_residual(W, V, Uk, s)
+            UT = Uk.transpose(1, 2).contiguous()
+            yield (f"{tag} k=78", lambda: maecho_gram.maecho_gram_left(A, UT),
+                   lambda: ref.maecho_gram_left_ref(A, UT), lambda: torch.bmm(A, UT), reps)
+        else:                   # B3
+            p = torch.rand(N, in_d, device="cuda", generator=gen)
+            yield (tag, lambda: maecho_gram.maecho_gram_diag(W, V, p),
+                   lambda: ref.maecho_gram_diag_ref(W, V, p), None, reps)
+        del W, V, P, D
+
+
+def stacked_simt_cases(torch, gen, which):
+    """B11 (factored, k = 89) and B12 (diagonal), the stacked Grams that
+    still run the SIMT templates, at Qwen2-0.5B's wq (24 x 896 x 896),
+    N = 2; B11 beside ``torch.bmm(A, UT)``."""
+    from repro_torch.kernels import maecho_gram, ref
+
+    L, out_d, in_d, N, k = 24, 896, 896, 2, 89
+    W = torch.randn(L, out_d, in_d, device="cuda", generator=gen) * 0.1
+    V = W + torch.randn(N, L, out_d, in_d, device="cuda", generator=gen) * 0.05
+    tag = f"wq (L={L}, {out_d}x{in_d}, N={N})"
+    if which == "B11":
+        U = torch.linalg.qr(torch.randn(N, L, in_d, k, device="cuda", generator=gen))[0]
+        s = torch.rand(N, L, k, device="cuda", generator=gen) * 0.9 + 0.1
+        A = maecho_gram.compressed_residual(W, V, U, s)
+        UT = U.transpose(-1, -2).contiguous()
+        Af, UTf = A.reshape(N * L, out_d, k), UT.reshape(N * L, k, in_d)
+        yield (f"{tag} k={k}", lambda: maecho_gram.maecho_gram_left_stacked(A, UT),
+               lambda: ref.maecho_gram_left_stacked_ref(A, UT), lambda: torch.bmm(Af, UTf), 5)
+    else:
+        p = torch.rand(N, L, in_d, device="cuda", generator=gen)
+        yield (tag, lambda: maecho_gram.maecho_gram_diag_stacked(W, V, p),
+               lambda: ref.maecho_gram_diag_stacked_ref(W, V, p), None, 5)
+
+
 def cross_cases(torch, gen):
     from repro_torch.kernels import maecho_gram, ref
 
@@ -140,7 +222,14 @@ def decode_cases(torch, gen):
                                                       enable_gqa=True), 50)
 
 
-CASES = {"B10": ("maecho_gram_stacked", lambda t, g: stacked_cases(t, g, "B10")),
+CASES = {"B1": ("maecho_gram", lambda t, g: dense_cases(t, g, "B1")),
+         "B2": ("maecho_gram_left", lambda t, g: dense_cases(t, g, "B2")),
+         "B3": ("maecho_gram_diag", lambda t, g: dense_cases(t, g, "B3")),
+         "B4": ("maecho_update", lambda t, g: dense_cases(t, g, "B4")),
+         "B7": ("maecho_v_update", lambda t, g: dense_cases(t, g, "B7")),
+         "B10": ("maecho_gram_stacked", lambda t, g: stacked_cases(t, g, "B10")),
+         "B11": ("maecho_gram_left_stacked", lambda t, g: stacked_simt_cases(t, g, "B11")),
+         "B12": ("maecho_gram_diag_stacked", lambda t, g: stacked_simt_cases(t, g, "B12")),
          "B13": ("maecho_update_stacked", lambda t, g: stacked_cases(t, g, "B13")),
          "B16": ("maecho_v_update_stacked", lambda t, g: stacked_cases(t, g, "B16")),
          "B19": ("maecho_gram_cross", cross_cases),
