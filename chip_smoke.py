@@ -189,6 +189,17 @@ prints B1's kernels (no client cap: the fused fix-up and pair sums up to 8
 clients, B19's contraction above), time and workspace at N = 4, 55, 64
 and 128.
 
+Added with B2 and B17 on 3xTF32 ``wgmma`` (the left form of the stage:
+Aᵢ·UTᵢ, depth k): the ``[sass]`` check covers their libraries too; right
+after it, a process of its own (``--kernel-names``, so that no
+``torch.profiler`` session runs in this one before phase 16) lists the
+kernels of one B2 call at W0 (k = 78) with N = 4 and 64 and of one B17
+call (L = 3, 200 x 300, k = 40, N = 5, norm off and on): B2 must run B1's
+kernels by its route and none of the SIMT Gram's, B17 its tf32 kernel
+(and the norm pass) and not the SIMT ``v_update_kernel`` (``[names]``
+lines); phase 9 prints B2's route, time and workspace at N = 4, 55, 64
+and 128, and phase 14 B2's workspace at the unchunked N = 256.
+
 It prints each phase's time, the QP's and the kernels' time inside a
 kernel aggregate of each path (CUDA events around each call), a
 ``{"kernels": [...]}`` JSON line, the card's name and power limit, and
@@ -232,7 +243,8 @@ FACTORED = ("maecho_gram_left", "maecho_update_left", "maecho_v_update_factored"
 DIAG = ("maecho_gram_diag", "maecho_update_diag", "maecho_v_update_diag")  # B3 B6 B9
 STACKED = ("maecho_gram_stacked", "maecho_update_stacked",
            "maecho_v_update_stacked")                                      # B10 B13 B16
-TF32 = DENSE[:2] + STACKED      # on 3xTF32 wgmma: B1 B4 B10 B13 B16
+TF32 = DENSE[:2] + STACKED + ("maecho_gram_left", "maecho_v_update_factored_stacked")
+# on 3xTF32 wgmma: B1 B4 B10 B13 B16, and B2 B17 on the left form
 # B1's kernels: up to 8 clients the share kernel, then each tile's fix-up
 # and pair sums in one pass; above, the fix-up and B19's contraction.
 # Printed, not profiled here: every torch.profiler session before phase 16
@@ -240,6 +252,10 @@ TF32 = DENSE[:2] + STACKED      # on 3xTF32 wgmma: B1 B4 B10 B13 B16
 B1_ROUTES = {True: ("splitk_tf32_kernel", "gram_tile_pairs_kernel", "gram_pairs_reduce_kernel"),
              False: ("splitk_tf32_kernel", "splitk_fixup_kernel", "gram_cross_partial_kernel",
                      "gram_cross_reduce_kernel")}
+# B2 runs B1's kernels by B1's rule, B17 its tf32 kernel (and the norm
+# pass); neither may run the SIMT bodies they replaced
+SIMT_GRAM = ("gram_partial_kernel", "gram_blocked_partial_kernel")
+B17_NAMES = ("v_update_left_tf32_kernel", "v_norm_kernel")
 STACKED_DIAG = ("maecho_gram_diag_stacked", "maecho_update_diag_stacked",
                 "maecho_v_update_diag_stacked")                            # B12 B15 B18
 STACKED_LEFT = ("maecho_gram_left_stacked", "maecho_update_left_stacked",
@@ -325,8 +341,9 @@ def graph_ms(torch, fn, reps: int) -> float:
 
 
 def check_tf32_sass(build) -> None:
-    """B1, B4, B10, B13 and B16 run 3xTF32 on the tensor cores: the SASS
-    of each one's library must hold TF32 HGMMA (wgmma) instructions."""
+    """B1, B4, B10, B13, B16, B2 and B17 run 3xTF32 on the tensor cores:
+    the SASS of each one's library must hold TF32 HGMMA (wgmma)
+    instructions."""
     for name in TF32:
         lib = build.library_path(name)
         sass = subprocess.run([build.cuda_tool("cuobjdump"), "-sass", str(lib)], check=True,
@@ -350,6 +367,62 @@ def kernel_names(torch, fn) -> list:
         fn()
         torch.cuda.synchronize()
     return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def left_kernel_names_main() -> None:
+    """``chip_smoke.py --kernel-names``, run by :func:`check_left_kernel_names`
+    in a process of its own: print as one JSON line the CUDA kernels
+    (``torch.profiler``) of one B2 call at W0 (k = 78) with N = 4 and 64
+    and of one B17 call (L = 3, 200 x 300, k = 40, N = 5) with the
+    row-norm off and on."""
+    import torch
+
+    sys.path.insert(0, str(SRC))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.kernels import maecho_gram, maecho_v_update
+
+    kern = SimpleNamespace(compressed_residual=maecho_gram.compressed_residual)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    out = {}
+    for N in (4, 64):
+        *_, A, UT = factored_inputs(torch, kern, gen, 400, 784, RANK, N)
+        out[f"maecho_gram_left N={N}"] = kernel_names(
+            torch, lambda: maecho_gram.maecho_gram_left(A, UT))
+    L, N, k = 3, 5, 40
+    W = torch.randn(L, 200, 300, device="cuda", generator=gen) * 0.1
+    V = W + torch.randn(N, L, 200, 300, device="cuda", generator=gen) * 0.05
+    U = torch.linalg.qr(torch.randn(N, L, 300, k, device="cuda", generator=gen))[0]
+    s = torch.rand(N, L, k, device="cuda", generator=gen) * 0.9 + 0.1
+    B = maecho_gram.compressed_residual(W, V, U, s)
+    UT = U.transpose(-1, -2).contiguous()
+    for norm in (False, True):
+        out[f"maecho_v_update_left_stacked norm={norm}"] = kernel_names(
+            torch, lambda: maecho_v_update.maecho_v_update_left_stacked(B, UT, W, V, 20 / 21,
+                                                                        norm))
+    print(json.dumps(out))
+
+
+def check_left_kernel_names() -> None:
+    """B2 and B17 left the SIMT templates: one B2 call runs B1's kernels by
+    B1's rule (the fused pass up to 8 clients, B19's contraction above)
+    and no SIMT Gram kernel, one B17 call its tf32 kernel (plus the norm
+    pass) and not ``v_update_kernel``.  The names come from a process of
+    its own (:func:`left_kernel_names_main`)."""
+    res = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--kernel-names"],
+                         capture_output=True, text=True)
+    check(res.returncode == 0, f"the kernel-name process failed:\n{res.stderr[-3000:]}")
+    for key, got in json.loads(res.stdout.strip().splitlines()[-1]).items():
+        print(f"[names] {key}: {got}")
+        if key.startswith("maecho_gram_left"):
+            want = B1_ROUTES[int(key.split("N=")[1]) <= 8]
+            check(len(got) == len(want) and all(w in g for w, g in zip(want, got))
+                  and not any(k in g for g in got for k in SIMT_GRAM),
+                  f"{key} ran {got}, expected {list(want)}")
+        else:
+            want = B17_NAMES[:1 + key.endswith("True")]
+            check(len(got) == len(want) and all(w in g for w, g in zip(want, got))
+                  and not any("v_update_kernel" in g for g in got),
+                  f"{key} ran {got}, expected {list(want)}")
 
 
 def time_cases(torch, label: str, cases: dict, timings: dict, reps: int = 50) -> None:
@@ -546,7 +619,9 @@ def phase_factored_kernels(torch, kern, ref):
     # the least operations each function needs (B2: gram_left_flops).
     # B2, B5 and the B8 kernel take
     # the reference's pallas_call operands: (A, Uᵀ), (W, A, Uᵀ, α) and
-    # (B, Uᵀ, W', V).  The B8 wrapper, as the factored path calls it,
+    # (B, Uᵀ, W', V); with the row-norm off V cancels from the B8 kernel's
+    # function (V + (W' − V) − frac·B·Uᵀ = W' − frac·B·Uᵀ), so its bound
+    # reads W', B and Uᵀ and writes V'.  The B8 wrapper, as the factored path calls it,
     # takes (W', V, U, s, Uᵀ) and forms B itself; its bound needs only
     # one GEMM for B, ((W' − Vᵢ)@Uᵢ)·diag(sᵢ), and one for Bᵢ@Uᵢᵀ.
     timings = {}
@@ -569,8 +644,8 @@ def phase_factored_kernels(torch, kern, ref):
             "maecho_v_update_factored": (
                 lambda: kern.maecho_v_update_left(B, UT, Wn, V, frac),
                 lambda: ref.maecho_v_update_left_ref(B, UT, Wn, V, frac),
-                gemm + 4.0 * N * OI,
-                4.0 * (N * OK + N * KI + OI + 2 * N * OI)),
+                gemm + 2.0 * N * OI,
+                4.0 * (N * OK + N * KI + OI + N * OI)),
             "maecho_v_update_factored wrapper": (
                 lambda: kern.maecho_v_update_factored(Wn, V, U, s, frac, UT=UT),
                 lambda: ref.maecho_v_update_factored_ref(Wn, V, U, s, frac),
@@ -794,7 +869,8 @@ def phase_stacked_left_kernels(torch, kern, ref):
         del W, V, U, A, UT
     torch.cuda.synchronize()
 
-    # Bounds as for B2/B5/B8, times L (B11's by the cross-Gram identity).  B17 is timed as its kernel alone on
+    # Bounds as for B2/B5/B8, times L (B11's by the cross-Gram identity;
+    # B17's kernel, as B8's, without V, which cancels).  B17 is timed as its kernel alone on
     # the reference pallas_call's operands (B, Uᵀ, W', V), and as the
     # wrapper the executor calls, which forms B with a torch GEMM first.
     timings = {}
@@ -814,7 +890,7 @@ def phase_stacked_left_kernels(torch, kern, ref):
                 gemm + 2.0 * N * OI + 2.0 * OI, 4.0 * (2 * OI + N * OK + N * KI + L * N)),
             v: (lambda: kern.maecho_v_update_left_stacked(B, UT, Wn, V, frac),
                 lambda: ref.maecho_v_update_left_stacked_ref(B, UT, Wn, V, frac),
-                gemm + 4.0 * N * OI, 4.0 * (N * OK + N * KI + OI + 2 * N * OI)),
+                gemm + 2.0 * N * OI, 4.0 * (N * OK + N * KI + OI + N * OI)),
             f"{v} wrapper": (
                 lambda: kern.maecho_v_update_factored_stacked(Wn, V, U, s, frac, UT=UT),
                 lambda: ref.maecho_v_update_factored_stacked_ref(Wn, V, U, s, frac),
@@ -916,6 +992,14 @@ def phase_many_clients(torch, kern, ref, timings):
                     N, out_d, in_d)
                 print(f"[c1] N={N} maecho_gram route {list(B1_ROUTES[N <= 8])}: "
                       f"{timings[(name, f'N{N}')][0]:.4f} ms, workspace {4 * ws / 1e6:.3f} MB")
+            elif name == "maecho_gram_left":    # B2: B1's kernels by N, its plan, workspace
+                units = -(-out_d // 128) * -(-in_d // 128) * N
+                sms = torch.cuda.get_device_properties(0).multi_processor_count
+                print(f"[c1] N={N} maecho_gram_left route {list(B1_ROUTES[N <= 8])}, "
+                      f"{units} (tile, client) units "
+                      f"{'a CTA each' if units <= sms else f'in shares over {sms} CTAs'}: "
+                      f"{timings[(name, f'N{N}')][0]:.4f} ms, workspace "
+                      f"{4 * gram_left_workspace(N, out_d, in_d, k) / 1e6:.3f} MB")
         del W, V, P, Uf, A, UT, p, one, args
     ws = build.load("maecho_gram_stacked", maecho_gram._STACKED_SIGS)
     n = MANY_CLIENTS[-1]
@@ -926,6 +1010,15 @@ def phase_many_clients(torch, kern, ref, timings):
           f"{4 * ws.maecho_gram_stacked_workspace_floats(64, 1, out_d, in_d) / 1e6:.3f} MB")
     torch.cuda.synchronize()
     return err
+
+
+def gram_left_workspace(N: int, out_d: int, in_d: int, k: int) -> int:
+    """Floats of workspace one B2 launch takes (residual fragments or
+    stack, partial tiles, pair partials)."""
+    from repro_torch.kernels import build, maecho_gram
+
+    lib = build.load("maecho_gram_left", maecho_gram._LEFT_SIGS)
+    return lib.maecho_gram_left_workspace_floats(N, out_d, in_d, k)
 
 
 def phase_many_clients_mlp(torch, kern):
@@ -2033,6 +2126,7 @@ def main() -> None:
             if "Used" in line or "spill" in line:
                 print(f"[ptxas] {name}: {line.strip()}")
     check_tf32_sass(build)
+    check_left_kernel_names()
 
     t0 = time.perf_counter()
     err, timings = phase_kernels(torch, kern, ref)
@@ -2088,6 +2182,11 @@ def main() -> None:
                  ck["spans"], CROSS)
     print(f"[memory] chunked MLP N=256: allocated before {ck['before_gb']:.3f} GB, "
           f"{ck['before_gc_gb']:.3f} GB after gc.collect(), peak in it {ck['peak_gb']:.3f} GB")
+    print("[memory] B2 in the unchunked N=256 aggregate (B1's route past 8 clients: the "
+          "residual stack, then B19's contraction), workspace a launch: " + ", ".join(
+              f"{leaf} ({o}x{i}, k={RANK}) {4 * gram_left_workspace(256, o, i, RANK) / 1e6:.3f} MB"
+              f" (stack {4 * 256 * o * i / 1e6:.3f} MB)"
+              for leaf, o, i in (("W0", 400, 784), ("W1", 200, 400))))
     for label, launches, ran, n in (("N=256 factored, chunk 64", ck["launches"], CROSS, 10),
                                     ("N=256 factored, unchunked", ck["launches_unchunked"],
                                      FACTORED, 1),
@@ -2265,4 +2364,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:] == ["--kernel-names"]:
+        left_kernel_names_main()
+    else:
+        main()

@@ -9,7 +9,8 @@
 // P_il = U_il diag(s_il) U_il^T; fp32 in, fp32 accumulation (no TF32)
 // -> G (L, N, N).
 //
-// Design.  B2's kernel (maecho_tile.cuh) on StackedLeftOp, with the
+// Design.  maecho_tile.cuh's SIMT Gram (gram_partial_kernel, the blocked
+// launch past 54 clients) on StackedLeftOp, with the
 // layer on blockIdx.z beside the client-block pair: each CTA parks the
 // residual tiles of its (layer, 32x32 tile) in shared memory, the K-loop
 // runs over the rank (masked, so k = 89 needs no padding), and the

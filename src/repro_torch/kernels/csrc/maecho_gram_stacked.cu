@@ -92,8 +92,8 @@ gram_tf32_kernel(const float* __restrict__ W, const float* __restrict__ V,
   float acc[64];
 #pragma unroll
   for (int e = 0; e < 64; ++e) acc[e] = 0.f;
-  run_stages<kVec>(
-      smem, mine * N * nk, out_d, in_d,
+  run_stages(
+      DenseStage<kVec>{}, smem, mine * N * nk, out_d, in_d,
       [&](int) {
         const size_t il = (size_t)li * L + ll;
         const StageRef r{W + ll * OI, V + il * OI, P + il * II, lo0, lc0, ls * kBK};

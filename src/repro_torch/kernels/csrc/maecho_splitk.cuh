@@ -1,6 +1,8 @@
 // The residual products of the unstacked dense MA-Echo kernels B1 (Eq. 6
-// Gram, maecho_gram.cu) and B4 (Eq. 7, maecho_update.cu) on 3xTF32
-// wgmma, with the depth split across the card, for Hopper (sm_90a).
+// Gram, maecho_gram.cu) and B4 (Eq. 7, maecho_update.cu) and of the
+// factored Gram B2 (maecho_gram_left.cu, on maecho_tf32.cuh's left form:
+// A_i UT_i, depth k) on 3xTF32 wgmma, with the depth split across the
+// card, for Hopper (sm_90a).
 //
 // Why split.  B10 and B13, their stacked twins, take one 128 x 128 output
 // tile a CTA (maecho_tf32.cuh's staging, two consumer warpgroups).  An
@@ -30,6 +32,10 @@
 // fp32, and writes it as the CTA would have (B1 up to 8 clients: the
 // fused pass does).  No atomics, and the shares depend on (T, C) alone:
 // the output is bitwise reproducible on a card.
+//
+// B2's units are short (3 stages at k = 78), so its plan may give each
+// (tile, client) unit a CTA of its own when the units fit one wave
+// (splitk_plan's whole_units): no unit is split, no slot is written.
 //
 // Bound.  The products, 2*N*out*in^2 flops, at the 3xTF32 rate (495/3
 // TFLOP/s) against ~4*(N*in^2 + N*out*in) bytes: at W0 (N = 4) 1.97
@@ -82,21 +88,23 @@ __device__ __forceinline__ void store_unit(const float (&acc)[4 * kN], const flo
   }
 }
 
-// One share of the stage sequence (CTA blockIdx.x of C).  slots holds two
-// partial tiles a CTA.  alpha is read by B4 only.  kFrag (B1 up to
+// One share of the stage sequence (CTA blockIdx.x of C), stages of form F
+// (W, V, P the dense form's operands; the left form's A, unused, UT).
+// slots holds two partial tiles a CTA.  alpha is read by B4 only.  kVec:
+// out (and B4's W) take paired stores.  kFrag (B1 and B2 up to
 // kFusedClients clients): a whole unit u goes to out + u kSlot as the
-// slots do, thread-major, for gram_tile_pairs_kernel (maecho_gram.cu).
-template <bool kVec, bool kGram, bool kFrag>
+// slots do, thread-major, for gram_tile_pairs_kernel
+// (maecho_gram_pairs.cuh).
+template <class F, bool kVec, bool kGram, bool kFrag>
 __global__ void __launch_bounds__(kThreads, 1)
-splitk_tf32_kernel(const float* __restrict__ W, const float* __restrict__ V,
+splitk_tf32_kernel(F form, const float* __restrict__ W, const float* __restrict__ V,
                    const float* __restrict__ P, const float* __restrict__ alpha,
                    float* __restrict__ out, float* __restrict__ slots, int N, int out_d,
                    int in_d, float eta, long long T, int C) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align1024(smem_raw);
   const int tid = threadIdx.x;
-  const int ct = tiles128(in_d), nk = (in_d + kBK - 1) / kBK;
-  const size_t OI = (size_t)out_d * in_d, II = (size_t)in_d * in_d;
+  const int ct = tiles128(in_d), nk = (form.depth(in_d) + kBK - 1) / kBK;
   const long long b0 = share_begin(blockIdx.x, T, C);
   const int G = (int)(share_begin(blockIdx.x + 1, T, C) - b0);
 
@@ -109,11 +117,11 @@ splitk_tf32_kernel(const float* __restrict__ W, const float* __restrict__ V,
   float acc[64];
 #pragma unroll
   for (int e = 0; e < 64; ++e) acc[e] = 0.f;
-  run_stages<kVec>(
-      smem, G, out_d, in_d,
+  run_stages(
+      form, smem, G, out_d, in_d,
       [&](int) {
-        const StageRef r{W, V + ld.client * OI, P + ld.client * II, ld.o0, ld.c0,
-                         ld.step * kBK};
+        const StageRef r = form.ref(W, V, P, ld.client, ld.o0, ld.c0, ld.step * kBK, out_d,
+                                    in_d);
         ld.next(N, nk, ct);
         return r;
       },
@@ -190,19 +198,23 @@ splitk_fixup_kernel(const float* __restrict__ slots, const float* __restrict__ W
                                   q * kE / 4, out_d, in_d, eta);
 }
 
-// The split of an (N, out, in) leaf: stages T, CTAs C (one an SM at most,
-// kMinShare stages a share at least), units and their stages K.  C is 0
-// when the device cannot be queried, -1 when the leaf is out of range.
+// The split of an (N, out, in) leaf of the given depth (in for the dense
+// form, the rank for the left one): stages T, CTAs C (one an SM at most,
+// kMinShare stages a share at least; with whole_units, one a unit when the
+// units fit one wave), units and their stages K.  C is 0 when the device
+// cannot be queried, -1 when the leaf is out of range.
 struct Split {
   long long T;
   int C, units, K;
 };
 
-inline Split splitk_plan(int N, int out_d, int in_d, bool gram) {
-  const int nk = (in_d + kBK - 1) / kBK;
+inline Split splitk_plan(int N, int out_d, int in_d, bool gram, int depth = -1,
+                         bool whole_units = false) {
+  if (depth < 0) depth = in_d;
+  const int nk = (depth + kBK - 1) / kBK;
   const long long tiles = (long long)tiles128(out_d) * tiles128(in_d);
   Split s{tiles * N * nk, -1, 0, 0};
-  if (N < 1 || out_d < 1 || in_d < 1 || s.T > 0x7fffffffLL ||
+  if (N < 1 || out_d < 1 || in_d < 1 || depth < 1 || s.T > 0x7fffffffLL ||
       (gram ? tiles * N : tiles) > 0x7fffffffLL)
     return s;
   s.units = (int)(gram ? tiles * N : tiles);
@@ -216,33 +228,70 @@ inline Split splitk_plan(int N, int out_d, int in_d, bool gram) {
   }
   const long long by_share = s.T / kMinShare > 1 ? s.T / kMinShare : 1;
   s.C = (int)(by_share < sms ? by_share : sms);
+  if (whole_units && s.units <= sms) s.C = s.units;
   return s;
 }
 
-// Floats of the two slots of every CTA.
-inline long long splitk_slot_floats(const Split& s) { return 2LL * s.C * kSlot; }
+// Floats of the two slots of every CTA; none when every share is one
+// whole unit (C == units: share c is unit c), as whole_units plans are.
+inline long long splitk_slot_floats(const Split& s) {
+  return s.C == s.units ? 0 : 2LL * s.C * kSlot;
+}
 
-// Launch the share kernel and, unless kFrag (whose fix-up is the
-// caller's), the fix-up on a checked leaf; slots as splitk_slot_floats
-// says.
+// Launch the share kernel on stages of form F and, unless kFrag (whose
+// fix-up is the caller's), the fix-up on a checked leaf; slots as
+// splitk_slot_floats says.
+template <class F, bool kVec, bool kGram, bool kFrag>
+int splitk_run(const F& form, const Split& s, const float* W, const float* V, const float* P,
+               const float* alpha, float* out, float* slots, int N, int out_d, int in_d,
+               float eta, cudaStream_t stream) {
+  auto kernel = splitk_tf32_kernel<F, kVec, kGram, kFrag>;
+  constexpr int smem = smem_of<F>();
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<s.C, kThreads, smem, stream>>>(form, W, V, P, alpha, out, slots, N, out_d, in_d,
+                                          eta, s.T, s.C);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || kFrag) return (int)err;
+  splitk_fixup_kernel<kVec, kGram><<<dim3(s.units, kFixParts), kThreads, 0, stream>>>(
+      slots, W, out, N, out_d, in_d, eta, s.T, s.C, s.K);
+  return (int)cudaGetLastError();
+}
+
+// The dense form (B1, B4): 16-byte copies and paired stores together.
 template <bool kGram, bool kFrag = false>
 int splitk_launch(const Split& s, const float* W, const float* V, const float* P,
                   const float* alpha, float* out, float* slots, int N, int out_d, int in_d,
                   float eta, cudaStream_t stream) {
   const bool vec = vec_ok(in_d, W, V, P) && reinterpret_cast<uintptr_t>(out) % 16 == 0;
-  auto kernel = vec ? splitk_tf32_kernel<true, kGram, kFrag>
-                    : splitk_tf32_kernel<false, kGram, kFrag>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<s.C, kThreads, kSmem, stream>>>(W, V, P, alpha, out, slots, N, out_d, in_d, eta,
-                                           s.T, s.C);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || kFrag) return (int)err;
-  auto fixup = vec ? splitk_fixup_kernel<true, kGram> : splitk_fixup_kernel<false, kGram>;
-  fixup<<<dim3(s.units, kFixParts), kThreads, 0, stream>>>(slots, W, out, N, out_d, in_d, eta,
-                                                           s.T, s.C, s.K);
-  return (int)cudaGetLastError();
+  return vec ? splitk_run<DenseStage<true>, true, kGram, kFrag>(
+                   DenseStage<true>{}, s, W, V, P, alpha, out, slots, N, out_d, in_d, eta,
+                   stream)
+             : splitk_run<DenseStage<false>, false, kGram, kFrag>(
+                   DenseStage<false>{}, s, W, V, P, alpha, out, slots, N, out_d, in_d, eta,
+                   stream);
+}
+
+// The left form's Gram stages (B2): A (N, out, rank), UT (N, rank, in);
+// A's copy width by the rank, UT's and the paired stores by in.
+template <bool kFrag>
+int splitk_left_launch(const Split& s, const float* A, const float* UT, float* out,
+                       float* slots, int N, int out_d, int in_d, int rank,
+                       cudaStream_t stream) {
+  const bool va = rows_vec_ok(rank, A);
+  const bool vb = rows_vec_ok(in_d, UT) && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  if (va && vb)
+    return splitk_run<LeftStage<true, true>, true, true, kFrag>(
+        {rank}, s, A, nullptr, UT, nullptr, out, slots, N, out_d, in_d, 1.f, stream);
+  if (va)
+    return splitk_run<LeftStage<true, false>, false, true, kFrag>(
+        {rank}, s, A, nullptr, UT, nullptr, out, slots, N, out_d, in_d, 1.f, stream);
+  if (vb)
+    return splitk_run<LeftStage<false, true>, true, true, kFrag>(
+        {rank}, s, A, nullptr, UT, nullptr, out, slots, N, out_d, in_d, 1.f, stream);
+  return splitk_run<LeftStage<false, false>, false, true, kFrag>(
+      {rank}, s, A, nullptr, UT, nullptr, out, slots, N, out_d, in_d, 1.f, stream);
 }
 
 }  // namespace tf32

@@ -1,8 +1,10 @@
-// 3xTF32 tensor-core machinery of the dense MA-Echo kernels for Hopper
+// 3xTF32 tensor-core machinery of the MA-Echo kernels for Hopper
 // (sm_90a): B10 (Eq. 6 Gram, maecho_gram_stacked.cu), B13 (Eq. 7,
 // maecho_update_stacked.cu) and B16 (Eq. 11, maecho_v_update_stacked.cu),
 // and through maecho_splitk.cuh B1 and B4 (maecho_gram.cu,
-// maecho_update.cu), which split a leaf's stage sequence into shares.
+// maecho_update.cu), which split a leaf's stage sequence into shares; in
+// its left form (below) B2 (maecho_gram_left.cu, through
+// maecho_splitk.cuh) and B17 (maecho_v_update_factored_stacked.cu).
 //
 // Each forms residual tiles R_i = (W_l - V_il) P_il of 128 (out) x 128 (in)
 // with fp32 accuracy on the tensor cores.  A CTA is two consumer warpgroups
@@ -38,6 +40,18 @@
 // hi.hi, hi.lo, lo.hi in turn); B10 and B13 run run_stages, the same
 // pipeline over a sequence of (tile, client, depth) stages, with the small
 // products first (stage_mma_small_first).
+//
+// The left form (LeftStage) takes the factored kernels' product A_i UT_i,
+// depth k, the projector's rank: A_i (out, k) is the compressed residual,
+// UT_i (k, in) = U_i^T.  A left raw stage is two tiles (32 KiB): the A
+// tile (128 x 32, swizzled as W's) and the UT tile (32 x 128, plain as
+// P's).  Its split takes A whole (no subtraction) and transposes UT as it
+// does P (UT is row-major with in contiguous: MN-major).  A's rows are k
+// floats, 78 or 89 on the main paths, so not 16-byte aligned: A and UT
+// choose their copy width apart (kVecA: k % 4 == 0; kVecB: in % 4 == 0;
+// each with aligned bases).  The last stage of a depth of k is short and
+// masked on load like a ragged in.  The dense form (DenseStage) is the
+// stage above, unchanged.
 
 #pragma once
 
@@ -54,6 +68,7 @@ constexpr int kRawBytes = 3 * kTile;     // a staged W, V_i, P_i
 constexpr int kPlaneBytes = 4 * kTile;   // A hi, A lo, B hi, B lo
 // two raw stages, two sets of split planes, 1 KiB to align
 constexpr int kSmem = 2 * kRawBytes + 2 * kPlaneBytes + 1024;
+constexpr int kLeftRawBytes = 2 * kTile;   // a staged A_i, UT_i (the left form)
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -189,9 +204,25 @@ __device__ __forceinline__ void load_stage(unsigned char* st, const float* Wl, c
   }
 }
 
+// The B operand of a raw stage, a plain 32 x 128 tile (P_i or UT_i), into
+// planes 2 and 3 of a set as its transpose's hi / lo (K-major, row c = 128
+// bytes of 32 k values, swizzled as the A planes).
+__device__ __forceinline__ void split_b_transposed(const float* Bst, unsigned char* planes,
+                                                   int tid) {
+#pragma unroll
+  for (int it = 0; it < 4; ++it) {
+    const int e = tid + it * kThreads, c = e & 127, kq = e >> 7;
+    uint32_t h[4], lo[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) split(Bst[(4 * kq + j) * 128 + c], h[j], lo[j]);
+    const int off = c * 128 + ((kq ^ (c & 7)) << 4);
+    *reinterpret_cast<uint4*>(planes + 2 * kTile + off) = make_uint4(h[0], h[1], h[2], h[3]);
+    *reinterpret_cast<uint4*>(planes + 3 * kTile + off) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+  }
+}
+
 // One raw stage into a set of split planes: A = W - V_i as hi / lo
-// (K-major, the raw tiles' swizzle), B = P_i^T as hi / lo (K-major, row c
-// = 128 bytes of 32 k values, swizzled the same way).
+// (K-major, the raw tiles' swizzle), B = P_i^T as hi / lo.
 __device__ __forceinline__ void split_stage(const unsigned char* raw, unsigned char* planes,
                                             int tid) {
 #pragma unroll
@@ -208,17 +239,75 @@ __device__ __forceinline__ void split_stage(const unsigned char* raw, unsigned c
     *reinterpret_cast<uint4*>(planes + off) = make_uint4(h[0], h[1], h[2], h[3]);
     *reinterpret_cast<uint4*>(planes + kTile + off) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
   }
-  const float* Pst = reinterpret_cast<const float*>(raw + 2 * kTile);
+  split_b_transposed(reinterpret_cast<const float*>(raw + 2 * kTile), planes, tid);
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");   // visible to wgmma
+}
+
+// The left form's stage k0 .. k0 + 31 of the depth (the rank): A_i[o0..,
+// k0..] (rows of depth floats) into a swizzled 128 x 32 tile, UT_i[k0..,
+// c0..] into a plain 32 x 128 tile after it; zero outside the leaf and
+// past the depth.  kVecA: depth % 4 == 0, so an A chunk is in or out
+// whole; kVecB: in % 4 == 0, the same for UT.
+template <bool kVecA, bool kVecB>
+__device__ __forceinline__ void load_left_stage(unsigned char* st, const float* Ai,
+                                                const float* UTi, int o0, int c0, int k0,
+                                                int out_d, int in_d, int depth, int tid) {
+  const uint32_t base = smem_u32(st);
+  if constexpr (kVecA) {
+#pragma unroll
+    for (int it = 0; it < 4; ++it) {
+      const int e = tid + it * kThreads, r = e >> 3, c = e & 7;
+      const int o = o0 + r, k = k0 + 4 * c;
+      const bool in = o < out_d && k < depth;
+      cp16(base + r * 128 + ((c ^ (r & 7)) << 4), Ai + (in ? (size_t)o * depth + k : 0),
+           in ? 16 : 0);
+    }
+  } else {                       // a warp copies one row's 32 floats: 128 coalesced bytes
+    for (int e = tid; e < 128 * kBK; e += kThreads) {
+      const int r = e >> 5, k = e & 31;
+      const int o = o0 + r, kk = k0 + k;
+      const bool in = o < out_d && kk < depth;
+      cp4(base + sw(r, k), Ai + (in ? (size_t)o * depth + kk : 0), in ? 4 : 0);
+    }
+  }
+  if constexpr (kVecB) {
+#pragma unroll
+    for (int it = 0; it < 4; ++it) {
+      const int e = tid + it * kThreads, r = e >> 5, c = e & 31;
+      const int kr = k0 + r, cc = c0 + 4 * c;
+      const bool in = kr < depth && cc < in_d;
+      cp16(base + kTile + r * 512 + c * 16, UTi + (in ? (size_t)kr * in_d + cc : 0),
+           in ? 16 : 0);
+    }
+  } else {
+    for (int e = tid; e < kBK * 128; e += kThreads) {
+      const int r = e >> 7, c = e & 127;
+      const int kr = k0 + r, cc = c0 + c;
+      const bool in = kr < depth && cc < in_d;
+      cp4(base + kTile + r * 512 + c * 4, UTi + (in ? (size_t)kr * in_d + cc : 0),
+          in ? 4 : 0);
+    }
+  }
+}
+
+// A left raw stage into a set of split planes: A_i whole as hi / lo, B =
+// UT_i^T as hi / lo.
+__device__ __forceinline__ void split_left_stage(const unsigned char* raw,
+                                                 unsigned char* planes, int tid) {
 #pragma unroll
   for (int it = 0; it < 4; ++it) {
-    const int e = tid + it * kThreads, c = e & 127, kq = e >> 7;
+    const int e = tid + it * kThreads, r = e >> 3, c = e & 7;
+    const int off = r * 128 + ((c ^ (r & 7)) << 4);
+    const float4 a = *reinterpret_cast<const float4*>(raw + off);
     uint32_t h[4], lo[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) split(Pst[(4 * kq + j) * 128 + c], h[j], lo[j]);
-    const int off = c * 128 + ((kq ^ (c & 7)) << 4);
-    *reinterpret_cast<uint4*>(planes + 2 * kTile + off) = make_uint4(h[0], h[1], h[2], h[3]);
-    *reinterpret_cast<uint4*>(planes + 3 * kTile + off) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+    split(a.x, h[0], lo[0]);
+    split(a.y, h[1], lo[1]);
+    split(a.z, h[2], lo[2]);
+    split(a.w, h[3], lo[3]);
+    *reinterpret_cast<uint4*>(planes + off) = make_uint4(h[0], h[1], h[2], h[3]);
+    *reinterpret_cast<uint4*>(planes + kTile + off) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
   }
+  split_b_transposed(reinterpret_cast<const float*>(raw + kTile), planes, tid);
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");   // visible to wgmma
 }
 
@@ -262,13 +351,65 @@ __device__ __forceinline__ void stage_mma_small_first(float (&part)[64], uint32_
 }
 
 // One stage of a sequence: the 32-deep slice k0 .. k0 + 31 of
-// (W_l - V_il) P_il for the output tile at (o0, c0).
+// (W_l - V_il) P_il for the output tile at (o0, c0); in the left form of
+// A_i UT_i (W = A_i, P = UT_i, V unused).
 struct StageRef {
   const float* W;              // layer l of W
   const float* V;              // V_il
   const float* P;              // P_il
   int o0, c0, k0;
 };
+
+// The operand forms of a stage: what a raw stage holds (kRaw bytes), how
+// it is copied in and split, the depth, and stage (client, o0, c0, k0) of
+// a leaf's operands (W, V, P; the left form's A, -, UT).
+template <bool kVec>
+struct DenseStage {
+  static constexpr int kRaw = kRawBytes;
+  __host__ __device__ int depth(int in_d) const { return in_d; }
+  __device__ __forceinline__ StageRef ref(const float* W, const float* V, const float* P,
+                                          int client, int o0, int c0, int k0, int out_d,
+                                          int in_d) const {
+    return StageRef{W, V + client * ((size_t)out_d * in_d), P + client * ((size_t)in_d * in_d),
+                    o0, c0, k0};
+  }
+  __device__ __forceinline__ void load(unsigned char* st, const StageRef& s, int out_d,
+                                       int in_d, int tid) const {
+    load_stage<kVec>(st, s.W, s.V, s.P, s.o0, s.c0, s.k0, out_d, in_d, tid);
+  }
+  __device__ __forceinline__ void split(const unsigned char* raw, unsigned char* planes,
+                                        int tid) const {
+    split_stage(raw, planes, tid);
+  }
+};
+
+template <bool kVecA, bool kVecB>
+struct LeftStage {
+  static constexpr int kRaw = kLeftRawBytes;
+  int rank;                    // the depth
+  __host__ __device__ int depth(int) const { return rank; }
+  __device__ __forceinline__ StageRef ref(const float* A, const float*, const float* UT,
+                                          int client, int o0, int c0, int k0, int out_d,
+                                          int in_d) const {
+    return StageRef{A + client * ((size_t)out_d * rank), nullptr,
+                    UT + client * ((size_t)rank * in_d), o0, c0, k0};
+  }
+  __device__ __forceinline__ void load(unsigned char* st, const StageRef& s, int out_d,
+                                       int in_d, int tid) const {
+    load_left_stage<kVecA, kVecB>(st, s.W, s.P, s.o0, s.c0, s.k0, out_d, in_d, rank, tid);
+  }
+  __device__ __forceinline__ void split(const unsigned char* raw, unsigned char* planes,
+                                        int tid) const {
+    split_left_stage(raw, planes, tid);
+  }
+};
+
+// Dynamic shared memory of a run_stages kernel on form F: two raw stages,
+// two plane sets, 1 KiB to align (kSmem for the dense form).
+template <class F>
+constexpr int smem_of() {
+  return 2 * F::kRaw + 2 * kPlaneBytes + 1024;
+}
 
 // B16's pipeline over a sequence of G >= 1 stages, at(g) naming stage g,
 // with the products small first (stage_mma_small_first): raw stage g + 1
@@ -282,25 +423,21 @@ struct StageRef {
 // with cursors: integer division there sits on the path between the
 // barriers (B10 with five divisions a stage took 6.40 ms at w_gate, with
 // cursors 5.47 ms, on an NVIDIA H100).  Every thread of the CTA calls
-// this alike.
-template <bool kVec, class At, class Consume, class After>
-__device__ __forceinline__ void run_stages(unsigned char* smem, int G, int out_d, int in_d,
-                                           At at, Consume consume, After after) {
+// this alike.  The stages are of form F (DenseStage, LeftStage).
+template <class F, class At, class Consume, class After>
+__device__ __forceinline__ void run_stages(const F& form, unsigned char* smem, int G, int out_d,
+                                           int in_d, At at, Consume consume, After after) {
   const int tid = threadIdx.x, wg = tid / 128;
-  unsigned char* planes = smem + 2 * kRawBytes;   // two sets, kPlaneBytes apart
+  unsigned char* planes = smem + 2 * F::kRaw;   // two sets, kPlaneBytes apart
   const uint32_t planes0 = smem_u32(planes);
-  auto load = [&](int g) {
-    const StageRef s = at(g);
-    load_stage<kVec>(smem + (g % 2) * kRawBytes, s.W, s.V, s.P, s.o0, s.c0, s.k0, out_d,
-                     in_d, tid);
-  };
+  auto load = [&](int g) { form.load(smem + (g % 2) * F::kRaw, at(g), out_d, in_d, tid); };
   for (int r = 0; r < 3; ++r) {
     if (r < G) load(r);
     cp_commit();
     if (r == 1) {                // raw 0 has landed: split it, free its slot
       cp_wait<1>();
       __syncthreads();
-      split_stage(smem, planes, tid);
+      form.split(smem, planes, tid);
       __syncthreads();
     }
   }
@@ -315,7 +452,7 @@ __device__ __forceinline__ void run_stages(unsigned char* smem, int G, int out_d
     if (gn < G) {
       cp_wait<1>();              // raw gn has landed, for this thread's copies
       __syncthreads();           // ... and everyone's
-      split_stage(smem + (gn % 2) * kRawBytes, planes + (gn % 2) * kPlaneBytes, tid);
+      form.split(smem + (gn % 2) * F::kRaw, planes + (gn % 2) * kPlaneBytes, tid);
       __syncthreads();           // raw slot gn % 2 is spent; plane set gn % 2 is ready
       if (gn + 2 < G) load(gn + 2);
       cp_commit();
@@ -380,6 +517,11 @@ __host__ __device__ inline int tiles128(int d) { return (d + 127) / 128; }
 inline bool vec_ok(int in_d, const void* W, const void* V, const void* P) {
   return in_d % 4 == 0 && ((reinterpret_cast<uintptr_t>(W) | reinterpret_cast<uintptr_t>(V) |
                             reinterpret_cast<uintptr_t>(P)) % 16 == 0);
+}
+
+// Rows of d floats at a 16-byte-aligned base (a left operand's kVecA, kVecB)
+inline bool rows_vec_ok(int d, const void* base) {
+  return d % 4 == 0 && reinterpret_cast<uintptr_t>(base) % 16 == 0;
 }
 
 }  // namespace tf32

@@ -1,15 +1,17 @@
 // Shared SIMT tile machinery of the MA-Echo kernels for Hopper (sm_90a),
-// plain fp32 FMA on the CUDA cores.  Its users: B2 (Eq. 6 Gram), B5
-// (Eq. 7 update) and B7/B8 (Eq. 11 update), the stacked B11/B14/B17 of
-// B2/B5/B8, B10's Gram past 54 clients (the client-blocked launch) and
-// B16's row-norm pass (v_norm_kernel).  The elementwise diagonal kernels
-// (maecho_diag.cuh: B3/B6/B9, B12/B15/B18) use only its constants, the
-// client blocking and the fixed-order gram_reduce_kernel.  B1 and B4
-// left it for 3xTF32 wgmma with the depth split across the card
-// (maecho_splitk.cuh; B1 then contracts by maecho_cross.cuh), B13 and
-// B10 up to 54 clients for maecho_tf32.cuh: the 32 x 32 tiles below give
-// a thread a 2 x 2 block, about one FMA a shared load, a tenth of the
-// card's fp32 rate (B1 at W0: 6.3 TFLOP/s).
+// plain fp32 FMA on the CUDA cores.  Its users: B5 (Eq. 7 update from
+// left factors), B7/B8 (Eq. 11 update), the stacked B11/B14 (Gram and
+// Eq. 7 from left factors), B10's Gram past 54 clients (the
+// client-blocked launch) and the row-norm pass v_norm_kernel of B16 and
+// B17.  The elementwise diagonal kernels (maecho_diag.cuh: B3/B6/B9,
+// B12/B15/B18) use only its constants, the client blocking and the
+// fixed-order gram_reduce_kernel.  B1 and B4 left it for 3xTF32 wgmma
+// with the depth split across the card (maecho_splitk.cuh; B1 then
+// contracts by maecho_cross.cuh), B13 and B10 up to 54 clients for
+// maecho_tf32.cuh, B2 (on B1's route) and B17 (a persistent grid) for
+// that header's left form: the 32 x 32 tiles below give a thread a 2 x 2
+// block, about one FMA a shared load, a tenth of the card's fp32 rate
+// (B1 at W0: 6.3 TFLOP/s).
 //
 // Layer axis.  Every launch covers L scan-stacked layers at once
 // (L = 1 for an unstacked leaf): W (L, out, in), V (N, L, out, in),

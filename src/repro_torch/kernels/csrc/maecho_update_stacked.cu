@@ -54,8 +54,8 @@ update_tf32_kernel(const float* __restrict__ W, const float* __restrict__ V,
   int li = 0, ls = 0;            // next stage to load: client, depth step
   int ci = 0, cs = 0;            // next stage to finish
   float m = -2.0f * al[0];
-  run_stages<kVec>(
-      smem, N * nk, out_d, in_d,
+  run_stages(
+      DenseStage<kVec>{}, smem, N * nk, out_d, in_d,
       [&](int) {
         const size_t il = (size_t)li * L + l;
         const StageRef r{Wl, V + il * OI, P + il * II, o0, c0, ls * kBK};

@@ -20,9 +20,11 @@ pipeline).
 Every Gram kernel takes any number of clients N.  B1 forms its residual
 tiles by 3xTF32 ``wgmma`` (``csrc/maecho_tf32.cuh``) with the depth split
 across the card (``csrc/maecho_splitk.cuh``, shared with B4), then sums
-the pairs in fp64: up to 8 clients each tile's fix-up and pair sums in
-one pass, above that B19's fixed-order contraction
-(``csrc/maecho_cross.cuh``) of the residual stack.  B2, B3, B11 and
+the pairs in fp64 (``csrc/maecho_gram_pairs.cuh``): up to 8 clients each
+tile's fix-up and pair sums in one pass, above that B19's fixed-order
+contraction (``csrc/maecho_cross.cuh``) of the residual stack.  B2 takes
+B1's route on the left form of the stage (Aᵢ and UTᵢ, depth k), a CTA a
+(tile, client) unit when the units fit one wave.  B3, B11 and
 B12: up to 54 clients one CTA per tile parks them all, above that the
 client axis is cut into blocks of at most 27 and one CTA takes each pair
 of blocks (``csrc/maecho_tile.cuh``).  B10 takes its own route up to 54 clients:
@@ -85,7 +87,7 @@ maecho_gram.launches = 0
 compressed_residual = ref.compressed_residual_ref
 
 _LEFT_SIGS = {
-    "maecho_gram_left_workspace_floats": (ctypes.c_longlong, [ctypes.c_int] * 3),
+    "maecho_gram_left_workspace_floats": (ctypes.c_longlong, [ctypes.c_int] * 4),
     "maecho_gram_left_launch": (ctypes.c_int, [ctypes.c_void_p] * 4
                                 + [ctypes.c_int] * 4 + [ctypes.c_void_p]),
 }
@@ -95,7 +97,11 @@ def maecho_gram_left(A, UT):
     """B2, the wrapper of ``csrc/maecho_gram_left.cu`` (port of
     ``repro/kernels/maecho_gram.py::maecho_gram_left``): the (N, N)
     Gram of Rᵢ = Aᵢ @ UTᵢ from A (N, out, k) and UT (N, k, in) float32.
-    Any out/in/k (ragged edges are masked in the kernel) and any N."""
+    Any out/in/k (ragged edges are masked in the kernel) and any N: the
+    residual tiles by 3xTF32 ``wgmma`` as B1's, then B1's pair sums in
+    fp64.  The workspace holds the residual tiles, partial tiles where
+    a CTA's share of the stages cuts a tile, and the pair sums'
+    partials."""
     if A.device.type == "cpu":
         return ref.maecho_gram_left_ref(A, UT)
     build.check_f32_cuda("maecho_gram_left", A=A, UT=UT)
@@ -107,8 +113,10 @@ def maecho_gram_left(A, UT):
     in_d = UT.shape[2]
     build.require(N >= 1, f"maecho_gram_left: N={N} clients, need at least 1")
     lib = build.load("maecho_gram_left", _LEFT_SIGS)
-    ws = torch.empty(lib.maecho_gram_left_workspace_floats(N, out_d, in_d),
-                     dtype=torch.float32, device=A.device)
+    n_ws = lib.maecho_gram_left_workspace_floats(N, out_d, in_d, kd)
+    if n_ws < 0:
+        raise RuntimeError("maecho_gram_left: cannot read the device's multiprocessor count")
+    ws = torch.empty(n_ws, dtype=torch.float32, device=A.device)
     G = torch.empty((N, N), dtype=torch.float32, device=A.device)
     err = lib.maecho_gram_left_launch(build.ptr(A), build.ptr(UT), build.ptr(ws),
                                       build.ptr(G), N, out_d, in_d, kd,

@@ -290,14 +290,14 @@ def maecho_v_update_left_stacked(B, UT, W, V, frac: float, norm: bool = False,
     operands of the reference's ``pallas_call``: V' (N, L, out, in) from B
     (N, L, out, k) compressed residual of W, UT (N, L, k, in), W
     (L, out, in) updated global and V (N, L, out, in) float32, one launch
-    for all layers.  Its launches count in
-    ``maecho_v_update_factored_stacked.launches``."""
+    for all layers: a persistent grid of 3xTF32 ``wgmma`` CTAs walking
+    the (layer, tile, client) units (plus a row-norm pass when ``norm``).
+    Its launches count in ``maecho_v_update_factored_stacked.launches``."""
     if W.device.type == "cpu":
         return ref.maecho_v_update_left_stacked_ref(B, UT, W, V, frac, norm, eps)
     name = "maecho_v_update_left_stacked"
     build.check_f32_cuda(name, B=B, UT=UT, W=W, V=V)
     N, L, out_d, kd, in_d = build.stacked_left_dims(name, B, UT, W=W, V=V)
-    build.require(N * L <= 65535, f"{name}: N*L={N * L} exceeds the grid's z limit")
     lib = build.load("maecho_v_update_factored_stacked", _FACTORED_STACKED_SIGS)
     ws = torch.empty(lib.maecho_v_update_factored_stacked_workspace_floats(
         N, L, out_d, in_d, int(norm)), dtype=torch.float32, device=W.device)

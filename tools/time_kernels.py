@@ -4,13 +4,17 @@ that computes the same function; to compare two checkouts in one call,
 run it once per checkout, in turns (parent, change, change, parent),
 each in its own process.
 
-    python3 tools/time_kernels.py --kernels B16,B22 [--src path/to/src] [--label name]
+    python3 tools/time_kernels.py --kernels B16,B22 [--src path/to/src] [--label name] [--profile]
 
 Kernels (ids of PERF.md §6) and the shapes of the main paths they run at:
 B1/B4 at the paper MLP's W0 (400 x 784) and W1 (200 x 400) and the CNN's
 fc0 (256 x 1024), N = 4, and at W0 with N = 64 (beside ``torch.bmm(W - V,
-P)``, TF32 off), B7, B2 (k = 78) and B3 at those three leaves; B11 (k =
-89) and B12 at Qwen2-0.5B's wq; B10/B13/B16 at Qwen2-0.5B's wq (24 x 896 x 896) and w_gate
+P)``, TF32 off), B7 and B3 at those three leaves; the factored B2, B5 and
+B8 (the kernel alone, on the compressed residual) at the three leaves
+with k = 78, B2 also at W0 with N = 64 (beside ``torch.bmm(A, UT)``,
+their product alone); B11 (k = 89) and B12 at Qwen2-0.5B's wq; B14 and
+B17 (the kernel alone) at wq and w_gate, k = 89, N = 2 (beside
+``torch.bmm(A, UT)`` over N·L); B10/B13/B16 at Qwen2-0.5B's wq (24 x 896 x 896) and w_gate
 (24 x 4864 x 896), N = 2, dense rank-in/2 projectors (each beside
 ``torch.bmm(D, P)``, their product alone, TF32 off); B19 at the chunk
 shapes (ca, cb, D) beside ``torch.mm(Ra, Rb.T)``; B21 at the serving
@@ -18,13 +22,16 @@ prefill (8, 512, 14/2 heads of 64), causal, bf16 and fp32, and B22 at
 the serving decode (8, W = 640, 2 kv heads, group 7, 64) filled to 576
 and at W = 4096 filled to 4000, bf16, both beside
 ``scaled_dot_product_attention``.  Device times from CUDA-graph replays;
-the kernels are built from ``--src`` first.  B1/B4 and B10/B13/B16 rows
-carry the kernel's and the plain version's max error against the
-function in float64 (``f64_err``, ``plain_f64_err``, beside
+the kernels are built from ``--src`` first.  B1/B4, B2, B10/B13/B16 and
+B17 rows carry the kernel's and the plain version's max error against
+the function in float64 (``f64_err``, ``plain_f64_err``, beside
 ``f64_max``).  Each row carries the sha256 of the kernel's output; each
 kernel's inputs come from ``--seed`` alone (not from the kernels listed
 before it), so two checkouts' outputs can be compared bit for bit.
-Prints one JSON line, with the card's name and power limit.
+With ``--profile`` each row also carries ``kernel_us``, the device µs a
+call of each CUDA kernel the kernel's wrapper launches, by name, from
+``torch.profiler``.  Prints one JSON line, with the card's name and power
+limit.
 """
 import hashlib
 import argparse
@@ -55,6 +62,30 @@ def graph_ms(torch, fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def profile_us(torch, fn, reps: int) -> dict:
+    """Device µs a call of each CUDA kernel that ``fn()`` launches, by
+    kernel name (``torch.profiler`` over ``reps`` calls after a warm-up
+    call)."""
+    import collections
+    import re
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    per = collections.defaultdict(float)
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            m = re.search(r"\w+_kernel", e.name)
+            per[m.group(0) if m else e.name[:60]] += e.time_range.elapsed_us() / reps
+    return {k: round(v, 3) for k, v in per.items()}
 
 
 def stacked_cases(torch, gen, which):
@@ -97,13 +128,12 @@ def stacked_cases(torch, gen, which):
 
 
 def dense_cases(torch, gen, which):
-    """B1 / B4 (and B7, B2, B3: the unstacked kernels that still run the
-    SIMT templates) at the paper MLP's W0 (400 x 784) and W1 (200 x 400)
-    and the CNN's fc0 (256 x 1024), N = 4, and B1 / B4 at W0 with N = 64,
+    """B1 / B4 (and B7, B3: unstacked kernels that still run the SIMT
+    templates) at the paper MLP's W0 (400 x 784) and W1 (200 x 400) and
+    the CNN's fc0 (256 x 1024), N = 4, and B1 / B4 at W0 with N = 64,
     with dense rank-in/2 projectors: (name, kernel fn, plain fn, library
     fn or None, reps[, float64 witness fn]).  B1/B4/B7 beside
-    ``torch.bmm(W - V, P)`` and B2 (k = 78) beside ``torch.bmm(A, UT)``,
-    TF32 off."""
+    ``torch.bmm(W - V, P)``, TF32 off."""
     from repro_torch.kernels import maecho_gram, maecho_update, maecho_v_update, ref
 
     shapes = (("W0", 400, 784, 4), ("W1", 200, 400, 4), ("fc0", 256, 1024, 4))
@@ -137,18 +167,87 @@ def dense_cases(torch, gen, which):
             yield (tag, lambda: maecho_v_update.maecho_v_update(W, V, P, 20 / 21),
                    lambda: ref.maecho_v_update_ref(W, V, P, 20 / 21),
                    lambda: torch.bmm(D, P), reps)
-        elif which == "B2":
-            Uk = torch.linalg.qr(torch.randn(N, in_d, 78, device="cuda", generator=gen))[0]
-            s = torch.rand(N, 78, device="cuda", generator=gen) * 0.9 + 0.1
-            A = maecho_gram.compressed_residual(W, V, Uk, s)
-            UT = Uk.transpose(1, 2).contiguous()
-            yield (f"{tag} k=78", lambda: maecho_gram.maecho_gram_left(A, UT),
-                   lambda: ref.maecho_gram_left_ref(A, UT), lambda: torch.bmm(A, UT), reps)
         else:                   # B3
             p = torch.rand(N, in_d, device="cuda", generator=gen)
             yield (tag, lambda: maecho_gram.maecho_gram_diag(W, V, p),
                    lambda: ref.maecho_gram_diag_ref(W, V, p), None, reps)
         del W, V, P, D
+
+
+def factored_cases(torch, gen, which):
+    """B2 / B5 / B8 (the kernel alone, on the compressed residual B of W'
+    and Uᵀ, here with W' = W so B = A) at the paper MLP's W0 and W1 and
+    the CNN's fc0, N = 4, k = 78, and B2 at W0 with N = 64: each beside
+    ``torch.bmm(A, UT)``, their product alone, TF32 off; B2 with its
+    float64 witness."""
+    from repro_torch.kernels import maecho_gram, maecho_update, maecho_v_update, ref
+
+    k = 78
+    shapes = (("W0", 400, 784, 4), ("W1", 200, 400, 4), ("fc0", 256, 1024, 4))
+    if which == "B2":
+        shapes += (("W0", 400, 784, 64),)
+    for label, out_d, in_d, N in shapes:
+        W = torch.randn(out_d, in_d, device="cuda", generator=gen) * 0.1
+        V = W + torch.randn(N, out_d, in_d, device="cuda", generator=gen) * 0.05
+        U = torch.linalg.qr(torch.randn(N, in_d, k, device="cuda", generator=gen))[0]
+        s = torch.rand(N, k, device="cuda", generator=gen) * 0.9 + 0.1
+        a = torch.softmax(torch.randn(N, device="cuda", generator=gen), 0)
+        A = maecho_gram.compressed_residual(W, V, U, s)
+        UT = U.transpose(1, 2).contiguous()
+        tag = f"{label} ({out_d}x{in_d}, N={N}) k={k}"
+        reps = 3 if N > 4 else 20
+
+        def witness():          # B2's Gram in float64
+            R = (A.double() @ UT.double()).reshape(N, -1)
+            return R @ R.T
+
+        if which == "B2":
+            yield (tag, lambda: maecho_gram.maecho_gram_left(A, UT),
+                   lambda: ref.maecho_gram_left_ref(A, UT), lambda: torch.bmm(A, UT), reps,
+                   witness)
+        elif which == "B5":
+            yield (tag, lambda: maecho_update.maecho_update_left(W, A, UT, a, 0.5),
+                   lambda: ref.maecho_update_left_ref(W, A, UT, a, 0.5),
+                   lambda: torch.bmm(A, UT), reps)
+        else:                   # B8
+            yield (tag, lambda: maecho_v_update.maecho_v_update_left(A, UT, W, V, 20 / 21),
+                   lambda: ref.maecho_v_update_left_ref(A, UT, W, V, 20 / 21),
+                   lambda: torch.bmm(A, UT), reps)
+        del W, V, U, A, UT
+
+
+def stacked_left_cases(torch, gen, which):
+    """B14 and B17 (the kernel alone, on the compressed residual B of W'
+    and Uᵀ, here with W' = W so B = A) at Qwen2-0.5B's wq (24 x 896 x 896)
+    and w_gate (24 x 4864 x 896), N = 2, k = 89, each beside
+    ``torch.bmm(A, UT)`` over N·L, their product alone, TF32 off; B17
+    with its float64 witness."""
+    from repro_torch.kernels import maecho_gram, maecho_update, maecho_v_update, ref
+
+    k = 89
+    for label, L, out_d, in_d, N in (("wq", 24, 896, 896, 2), ("w_gate", 24, 4864, 896, 2)):
+        W = torch.randn(L, out_d, in_d, device="cuda", generator=gen) * 0.1
+        V = W + torch.randn(N, L, out_d, in_d, device="cuda", generator=gen) * 0.05
+        U = torch.linalg.qr(torch.randn(N, L, in_d, k, device="cuda", generator=gen))[0]
+        s = torch.rand(N, L, k, device="cuda", generator=gen) * 0.9 + 0.1
+        a = torch.softmax(torch.randn(L, N, device="cuda", generator=gen), -1).contiguous()
+        A = maecho_gram.compressed_residual(W, V, U, s)
+        UT = U.transpose(-1, -2).contiguous()
+        Af, UTf = A.reshape(N * L, out_d, k), UT.reshape(N * L, k, in_d)
+        tag = f"{label} (L={L}, {out_d}x{in_d}, N={N}) k={k}"
+
+        def witness():          # B17 in float64
+            return V.double() + (W[None] - V).double() - 20 / 21 * (A.double() @ UT.double())
+
+        if which == "B14":
+            yield (tag, lambda: maecho_update.maecho_update_left_stacked(W, A, UT, a, 0.5),
+                   lambda: ref.maecho_update_left_stacked_ref(W, A, UT, a, 0.5),
+                   lambda: torch.bmm(Af, UTf), 3)
+        else:                   # B17
+            yield (tag, lambda: maecho_v_update.maecho_v_update_left_stacked(A, UT, W, V, 20 / 21),
+                   lambda: ref.maecho_v_update_left_stacked_ref(A, UT, W, V, 20 / 21),
+                   lambda: torch.bmm(Af, UTf), 3, witness)
+        del W, V, U, A, UT, Af, UTf
 
 
 def stacked_simt_cases(torch, gen, which):
@@ -223,15 +322,20 @@ def decode_cases(torch, gen):
 
 
 CASES = {"B1": ("maecho_gram", lambda t, g: dense_cases(t, g, "B1")),
-         "B2": ("maecho_gram_left", lambda t, g: dense_cases(t, g, "B2")),
+         "B2": ("maecho_gram_left", lambda t, g: factored_cases(t, g, "B2")),
          "B3": ("maecho_gram_diag", lambda t, g: dense_cases(t, g, "B3")),
          "B4": ("maecho_update", lambda t, g: dense_cases(t, g, "B4")),
+         "B5": ("maecho_update_left", lambda t, g: factored_cases(t, g, "B5")),
          "B7": ("maecho_v_update", lambda t, g: dense_cases(t, g, "B7")),
+         "B8": ("maecho_v_update_factored", lambda t, g: factored_cases(t, g, "B8")),
          "B10": ("maecho_gram_stacked", lambda t, g: stacked_cases(t, g, "B10")),
          "B11": ("maecho_gram_left_stacked", lambda t, g: stacked_simt_cases(t, g, "B11")),
          "B12": ("maecho_gram_diag_stacked", lambda t, g: stacked_simt_cases(t, g, "B12")),
          "B13": ("maecho_update_stacked", lambda t, g: stacked_cases(t, g, "B13")),
+         "B14": ("maecho_update_left_stacked", lambda t, g: stacked_left_cases(t, g, "B14")),
          "B16": ("maecho_v_update_stacked", lambda t, g: stacked_cases(t, g, "B16")),
+         "B17": ("maecho_v_update_factored_stacked",
+                 lambda t, g: stacked_left_cases(t, g, "B17")),
          "B19": ("maecho_gram_cross", cross_cases),
          "B21": ("flash_attention", flash_cases),
          "B22": ("decode_attention", decode_cases)}
@@ -244,6 +348,8 @@ def main() -> None:
     ap.add_argument("--src", default="src", help="the checkout's src directory")
     ap.add_argument("--label", default="")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--profile", action="store_true",
+                    help="add each row's device µs by CUDA kernel (torch.profiler)")
     args = ap.parse_args()
     ids = [k.strip() for k in args.kernels.split(",") if k.strip()]
     unknown = [k for k in ids if k not in CASES]
@@ -277,7 +383,9 @@ def main() -> None:
                          **f64,
                          "ms": graph_ms(torch, k_fn, reps),
                          "plain_ms": graph_ms(torch, p_fn, reps),
-                         "library_ms": graph_ms(torch, lib_fn, reps) if lib_fn else None})
+                         "library_ms": graph_ms(torch, lib_fn, reps) if lib_fn else None,
+                         **({"kernel_us": profile_us(torch, k_fn, reps)} if args.profile
+                            else {})})
             print(f"[time_kernels] {args.label} {kid} {tag}: {rows[-1]}", file=sys.stderr)
             del got, want
             torch.cuda.empty_cache()
